@@ -1,0 +1,249 @@
+"""The client-side local training operator (port of ``fedml_tpu/core/client.py``).
+
+One client's local update is a Python loop over epochs × fixed-shape
+batches on the device.  Semantics follow the JAX package exactly:
+
+- the client optimizer is built fresh every round (state from ``init``);
+- a per-epoch reshuffle of the local pack (a ``torch.Generator`` drawn
+  from (client seed, epoch): reproducible, but not JAX's bits);
+- batches that are entirely padding leave the *params* unchanged, while
+  the optimizer state (momentum picks up the ``wd·p`` term) and the
+  BatchNorm statistics still advance, as in the JAX scan;
+- mixed precision (``compute_dtype``): params AND batch_stats are cast to
+  the compute dtype for the forward/backward, gradients reach the fp32
+  masters through the cast, new statistics are cast back to fp32.
+
+The optimizers are functional over dicts of tensors (``init(params)``,
+``update(grads, state, params) -> (updates, state)``), mirroring the
+optax chains: SGD (+momentum, coupled weight decay) and
+``torch.optim.Adam(amsgrad=True)`` semantics, with optional global-norm
+clipping first.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+
+from fedml_tpu_torch.core import tree as treelib
+from fedml_tpu_torch.core.losses import LossFn, masked_softmax_ce
+from fedml_tpu_torch.core.rng import generator
+from fedml_tpu_torch.models.base import ModelBundle
+
+Params = Dict[str, torch.Tensor]
+Transform = Tuple[Callable, Callable]  # (init(params), update(g, state, params))
+
+
+def _clip_by_global_norm(max_norm: float) -> Transform:
+    def update(g, state, params):
+        norm = torch.sqrt(treelib.tree_sq_norm(g))
+        keep = norm < max_norm
+        return {k: torch.where(keep, v, v / norm.to(v.dtype) * max_norm)
+                for k, v in g.items()}, state
+    return (lambda params: (), update)
+
+
+def _add_decayed_weights(wd: float) -> Transform:
+    def update(g, state, params):
+        return {k: g[k] + wd * params[k] for k in g}, state
+    return (lambda params: (), update)
+
+
+def _trace(decay: float) -> Transform:
+    """optax.trace: t ← g + decay·t (heavy-ball momentum, no dampening)."""
+    def update(g, state, params):
+        t = {k: g[k] + decay * state[k] for k in g}
+        return t, t
+    return (lambda params: treelib.tree_map(torch.zeros_like, params), update)
+
+
+def _scale(step: float) -> Transform:
+    return (lambda params: (),
+            lambda g, state, params: ({k: v * step for k, v in g.items()}, state))
+
+
+def _scale_by_amsgrad_torch(b1: float = 0.9, b2: float = 0.999,
+                            eps: float = 1e-8) -> Transform:
+    """torch.optim.Adam(amsgrad=True): the running max is over the RAW
+    second moment, and bias correction divides the max."""
+    def init(params):
+        zeros = lambda: treelib.tree_map(torch.zeros_like, params)  # noqa: E731
+        return {"count": 0, "mu": zeros(), "nu": zeros(), "nu_max": zeros()}
+
+    def update(g, state, params):
+        t = state["count"] + 1
+        mu = {k: b1 * state["mu"][k] + (1 - b1) * g[k] for k in g}
+        nu = {k: b2 * state["nu"][k] + (1 - b2) * g[k] * g[k] for k in g}
+        nu_max = {k: torch.maximum(state["nu_max"][k], nu[k]) for k in g}
+        c1, c2 = 1 - b1 ** t, 1 - b2 ** t
+        out = {k: (mu[k] / c1) / (torch.sqrt(nu_max[k] / c2) + eps) for k in g}
+        return out, {"count": t, "mu": mu, "nu": nu, "nu_max": nu_max}
+    return init, update
+
+
+@dataclasses.dataclass
+class Optimizer:
+    """A chain of gradient transforms; ``update`` returns the additive
+    parameter updates and the new state."""
+
+    transforms: List[Transform]
+
+    def init(self, params: Params) -> list:
+        return [init(params) for init, _ in self.transforms]
+
+    def update(self, grads: Params, state: list, params: Params):
+        new_state = []
+        for (_, update), s in zip(self.transforms, state):
+            grads, s = update(grads, s, params)
+            new_state.append(s)
+        return grads, new_state
+
+
+def make_client_optimizer(
+    name: str = "sgd",
+    lr: float = 0.03,
+    *,
+    momentum: float = 0.0,
+    weight_decay: Optional[float] = None,
+    grad_clip: Optional[float] = None,
+) -> Optimizer:
+    """The reference's client optimizers: SGD (+momentum/wd) or amsgrad
+    Adam.  ``weight_decay=None`` means the optimizer's default (0 for
+    sgd, the reference's 1e-4 for adam); both decays are COUPLED L2
+    (``wd·p`` added to the gradient before the update)."""
+    chain: List[Transform] = []
+    if grad_clip is not None:
+        chain.append(_clip_by_global_norm(grad_clip))
+    if name == "sgd":
+        if weight_decay:
+            chain.append(_add_decayed_weights(weight_decay))
+        if momentum:
+            chain.append(_trace(momentum))
+        chain.append(_scale(-lr))
+    elif name == "adam":
+        wd = 1e-4 if weight_decay is None else weight_decay
+        if wd:
+            chain.append(_add_decayed_weights(wd))
+        chain.append(_scale_by_amsgrad_torch())
+        chain.append(_scale(-lr))
+    else:
+        raise ValueError(f"unknown client optimizer: {name}")
+    return Optimizer(chain)
+
+
+@dataclasses.dataclass
+class LocalUpdateFn:
+    """Callable local update plus metadata the algorithms need."""
+
+    fn: Callable  # (variables, x, y, mask, seed) -> (variables, metrics)
+    epochs: int
+
+    def __call__(self, variables, x, y, mask, seed):
+        return self.fn(variables, x, y, mask, seed)
+
+
+def make_local_update(
+    bundle: ModelBundle,
+    optimizer: Optimizer,
+    epochs: int,
+    loss_fn: LossFn = masked_softmax_ce,
+    *,
+    prox_mu: float = 0.0,
+    shuffle: bool = True,
+    compute_dtype: Optional[torch.dtype] = None,
+) -> LocalUpdateFn:
+    """Build the local-update function for one client.
+
+    Shapes (one client): x [steps, B, ...], y [steps, B], mask [steps, B];
+    ``seed`` keys the per-epoch shuffle.  Returns (new_variables, metrics)
+    where metrics carries summed loss/correct/count over the final epoch
+    and ``steps``, the optimizer steps taken on batches with a real
+    sample, over all epochs."""
+
+    def loss_and_aux(params, others, global_params, x, y, m):
+        variables = {**others, "params": params}
+        if compute_dtype is not None:
+            cvars = treelib.tree_cast_floats(variables, compute_dtype)
+            cx = x.to(compute_dtype) if x.is_floating_point() else x
+            logits, new_vars = bundle.apply_train(cvars, cx)
+            new_vars = treelib.tree_cast_like(new_vars, variables)
+        else:
+            logits, new_vars = bundle.apply_train(variables, x)
+        loss, aux = loss_fn(logits, y, m)
+        if prox_mu:
+            sq = treelib.tree_sq_norm(treelib.tree_sub(params, global_params))
+            loss = loss + 0.5 * prox_mu * sq
+        return loss, new_vars, aux
+
+    def local_update(variables, x, y, mask, seed: int):
+        steps, bsz = x.shape[0], x.shape[1]
+        n = steps * bsz
+        global_params = variables["params"]
+        params = variables["params"]
+        others = {k: v for k, v in variables.items() if k != "params"}
+        opt_state = optimizer.init(params)
+        names = list(params)
+        real_steps = torch.zeros((), device=x.device)
+        for ep in range(epochs):
+            if shuffle:
+                perm = torch.randperm(n, generator=generator(seed, ep))
+                perm = perm.to(x.device)
+                xs = x.reshape(n, *x.shape[2:])[perm].reshape(x.shape)
+                ys = y.reshape(n, *y.shape[2:])[perm].reshape(y.shape)
+                ms = mask.reshape(n)[perm].reshape(mask.shape)
+            else:
+                xs, ys, ms = x, y, mask
+            sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
+            for i in range(steps):
+                leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+                with torch.enable_grad():
+                    loss, new_vars, aux = loss_and_aux(
+                        leaves, others, global_params, xs[i], ys[i], ms[i])
+                    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                with torch.no_grad():
+                    grads = dict(zip(names, grads))
+                    updates, opt_state = optimizer.update(grads, opt_state, params)
+                    has_real = ms[i].sum() > 0
+                    # a pad-only batch leaves the params where they were
+                    params = {k: torch.where(has_real, params[k] + updates[k],
+                                             params[k]) for k in names}
+                    others = treelib.tree_detach(
+                        {k: v for k, v in new_vars.items() if k != "params"})
+                    for k in sums:
+                        sums[k] = sums[k] + aux[k].detach()
+                    real_steps = real_steps + has_real.float()
+        metrics = {**sums, "steps": real_steps}
+        return {**others, "params": params}, metrics
+
+    return LocalUpdateFn(fn=local_update, epochs=epochs)
+
+
+def make_evaluator(bundle: ModelBundle, loss_fn: LossFn = masked_softmax_ce):
+    """Eval over a padded batch pack [steps, B, ...] → summed metrics.
+
+    Evaluation stays float32 even when training uses a low-precision
+    compute dtype."""
+
+    @torch.no_grad()
+    def evaluate(variables, x, y, mask):
+        total: Dict[str, torch.Tensor] = {}
+        for i in range(x.shape[0]):
+            logits = bundle.apply_eval(variables, x[i])
+            _, aux = loss_fn(logits, y[i], mask[i])
+            for k, v in aux.items():
+                total[k] = total[k] + v if k in total else v
+        return total
+
+    return evaluate
+
+
+def eval_summary(res) -> dict:
+    """Summed evaluator metrics → the test_{acc,loss,count} record."""
+    count = float(res["count"])
+    return {
+        "test_acc": float(res["correct"]) / max(count, 1.0),
+        "test_loss": float(res["loss_sum"]) / max(count, 1.0),
+        "test_count": count,
+    }
