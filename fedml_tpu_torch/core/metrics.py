@@ -6,7 +6,8 @@ Port of ``fedml_tpu/core/metrics.py`` (without wandb):
   with pending ``span`` timings attached to round rows; each span also
   feeds the ``span.<name>_s`` telemetry histogram.
 - ``trace(dir)``: a ``torch.profiler`` context (CPU and, when present,
-  CUDA activity) that writes a chrome trace into ``dir``.
+  CUDA activity) that writes a chrome trace into ``dir``;
+- ``setup_logging``: the per-process log format.
 """
 
 from __future__ import annotations
@@ -99,6 +100,15 @@ class MetricsLogger:
     def __exit__(self, exc_type, exc, tb) -> bool:
         self.close()
         return False
+
+
+def setup_logging(rank: Optional[int] = None, level=logging.INFO) -> None:
+    """Per-process format including the process rank."""
+    tag = f"[rank {rank}] " if rank is not None else ""
+    logging.basicConfig(
+        level=level,
+        format=f"%(asctime)s {tag}%(name)s %(levelname)s: %(message)s",
+    )
 
 
 @contextlib.contextmanager

@@ -1,0 +1,119 @@
+"""Model + dataset registries for the experiment entry points (subset of
+``fedml_tpu/experiments/registry.py``).
+
+The port has the names its slices carry so far: datasets ``cifar10``,
+``shakespeare`` and ``fed_shakespeare``, model ``resnet56``.  Every other
+name raises ``NotImplementedError`` naming the ROADMAP item that ports
+the rest of the JAX registry.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from fedml_tpu_torch.core.types import FedDataset
+from fedml_tpu_torch.models.base import ModelBundle
+from fedml_tpu_torch.utils.device import DeviceLike
+
+
+def _not_ported(kind: str, name: str):
+    return NotImplementedError(
+        f"{kind} {name!r} is not ported to fedml_tpu_torch yet "
+        "(ROADMAP.md, queue A item 6: the rest of the model and data zoo)")
+
+
+def load_data(
+    dataset: str,
+    data_dir: str = "",
+    num_clients: int = 10,
+    partition_method: str = "hetero",
+    partition_alpha: float = 0.5,
+    seed: int = 0,
+) -> FedDataset:
+    if dataset == "cifar10":
+        from fedml_tpu_torch.data.cifar import load_cifar10
+
+        return load_cifar10(data_dir or "./data/cifar10", num_clients,
+                            partition=partition_method,
+                            partition_alpha=partition_alpha, seed=seed)
+    if dataset == "shakespeare":
+        from fedml_tpu_torch.data.shakespeare import load_shakespeare
+
+        return load_shakespeare(data_dir or "./data/shakespeare",
+                                num_clients, seed=seed)
+    if dataset == "fed_shakespeare":
+        from fedml_tpu_torch.data.shakespeare import load_fed_shakespeare
+
+        return load_fed_shakespeare(data_dir or "./data/fed_shakespeare/datasets",
+                                    num_clients, seed=seed)
+    raise _not_ported("dataset", dataset)
+
+
+def task_loss_for_dataset(dataset: str):
+    """Per-dataset task loss: masked softmax cross-entropy (the
+    multi-label BCE of ``stackoverflow_lr`` is not ported yet)."""
+    from fedml_tpu_torch.core import losses
+
+    if dataset == "stackoverflow_lr":
+        raise _not_ported("loss of dataset", dataset)
+    return losses.masked_softmax_ce
+
+
+def shrink_dataset(
+    ds: FedDataset,
+    max_samples_per_client: int = 0,
+    max_test_samples: int = 0,
+) -> FedDataset:
+    """Deterministically cap per-client shard sizes and the test set
+    (prefix of each client's shard; strided selection of the test set,
+    since folder-tree loaders emit test arrays grouped by class)."""
+    import dataclasses as _dc
+
+    if not (max_samples_per_client or max_test_samples):
+        return ds
+    train_idx = ds.train_client_idx
+    if max_samples_per_client:
+        train_idx = {
+            c: idx[:max_samples_per_client] for c, idx in train_idx.items()
+        }
+    test_x, test_y = ds.test_x, ds.test_y
+    test_idx = ds.test_client_idx
+    if max_test_samples and test_y is not None and \
+            len(test_y) > max_test_samples:
+        import numpy as _np
+
+        keep = _np.linspace(0, len(test_y) - 1, max_test_samples,
+                            dtype=_np.int64)
+        test_x = test_x[keep]
+        test_y = test_y[keep]
+        if test_idx is not None:
+            # remap kept global positions to their new compacted index
+            pos = {int(g): i for i, g in enumerate(keep)}
+            test_idx = {
+                c: _np.asarray([pos[int(g)] for g in idx if int(g) in pos],
+                               dtype=_np.int64)
+                for c, idx in test_idx.items()
+            }
+    return _dc.replace(
+        ds, train_client_idx=train_idx, test_x=test_x, test_y=test_y,
+        test_client_idx=test_idx,
+    )
+
+
+def create_model(
+    model: str, dataset: str, num_classes: int,
+    image_size: Optional[int] = None,
+    input_shape: Optional[tuple] = None,
+    device: DeviceLike = None,
+) -> ModelBundle:
+    """The reference's (model, dataset) switch: ``resnet56`` (the
+    library-conv baseline, as the JAX registry's XLA-conv one)."""
+    img = image_size or (
+        input_shape[0] if input_shape and len(input_shape) >= 2
+        else (28 if dataset in ("mnist", "femnist") else 32)
+    )
+    if model == "resnet56":
+        from fedml_tpu_torch.models.resnet import resnet56
+
+        return resnet56(num_classes=num_classes, image_size=img, device=device)
+    raise _not_ported(f"model (on dataset {dataset!r})", model)

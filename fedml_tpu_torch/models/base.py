@@ -46,7 +46,10 @@ def name_state_owners(module: nn.Module) -> None:
 
 def _init_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
     """flax's initializers by leaf name: conv/dense ``kernel`` lecun-normal
-    (fan-in = every axis but the last), ``bias``/``mean`` zeros,
+    (fan-in = every axis but the last), ``embedding`` flax's
+    ``default_embed_init`` (an untruncated normal, variance_scaling(1,
+    "fan_in", out_axis=0): fan-in = every axis but the first, so std
+    ``1/√E`` for a ``[V, E]`` table), ``bias``/``mean`` zeros,
     ``scale``/``var`` ones."""
     leaf = name.rsplit(".", 1)[-1]
     if leaf == "kernel":
@@ -54,11 +57,28 @@ def _init_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
         t = torch.empty(shape)
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
                                      generator=generator)
+    if leaf == "embedding":
+        std = math.sqrt(1.0 / math.prod(shape[1:]))
+        return torch.randn(shape, generator=generator) * std
     if leaf in ("bias", "mean"):
         return torch.zeros(shape)
     if leaf in ("scale", "var"):
         return torch.ones(shape)
     raise ValueError(f"no initializer for variable {name!r}")
+
+
+class Dense(nn.Module):
+    """flax ``nn.Dense``: ``[in, out]`` kernel, plus a bias unless
+    ``use_bias=False``."""
+
+    def __init__(self, cin: int, cout: int, use_bias: bool = True):
+        super().__init__()
+        self.kernel = meta_param(cin, cout)
+        self.bias = meta_param(cout) if use_bias else None
+
+    def forward(self, x):
+        y = x @ self.kernel.to(x.dtype)
+        return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
 @dataclasses.dataclass

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fedml_tpu_torch.models.base import ModelBundle, meta_param
+from fedml_tpu_torch.models.base import Dense, ModelBundle, meta_param
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
@@ -74,18 +74,6 @@ class BatchNorm(nn.Module):
         dtype = torch.promote_types(
             torch.promote_types(x.dtype, self.scale.dtype), self.bias.dtype)
         return y.to(dtype)
-
-
-class Dense(nn.Module):
-    """flax ``nn.Dense``: ``[in, out]`` kernel plus bias."""
-
-    def __init__(self, cin: int, cout: int):
-        super().__init__()
-        self.kernel = meta_param(cin, cout)
-        self.bias = meta_param(cout)
-
-    def forward(self, x):
-        return x @ self.kernel.to(x.dtype) + self.bias.to(x.dtype)
 
 
 class BasicBlock(nn.Module):

@@ -22,8 +22,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from fedml_tpu_torch.models.base import ModelBundle, meta_param
-from fedml_tpu_torch.models.resnet import Dense
+from fedml_tpu_torch.models.base import Dense, ModelBundle, meta_param
 from fedml_tpu_torch.ops.conv_mxu import conv3x3, conv3x3_moments
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 

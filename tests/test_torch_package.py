@@ -37,6 +37,13 @@ cfg = FedAvgConfig(num_clients=2, clients_per_round=2, comm_rounds=1,
                    compute_dtype="bf16")
 row = FedAvgSimulation(resnet56_tpu(device="cpu"), ds, cfg, device="cpu").run()[-1]
 assert np.isfinite(row["train_loss"]) and np.isfinite(row["test_loss"]), row
+import tempfile
+import fedml_tpu_torch.bench  # noqa: F401  (imported so the check below covers it)
+from fedml_tpu_torch.experiments import run
+with tempfile.TemporaryDirectory() as d:
+    out = run.main(["--algorithm", "fedllm", "--dataset", "fed_shakespeare",
+                    "--device", "cpu", "--ci", "1", "--comm_round", "1", "--run_dir", d])
+assert np.isfinite(out["final"]["train_loss"]), out
 bad = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "fedml_tpu."))]
 assert not bad, bad
 print("OK", row["train_loss"])
@@ -48,7 +55,7 @@ def test_port_runs_a_round_without_jax_in_a_fresh_process():
     out = subprocess.run([sys.executable, "-c", _CPU_ROUND], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=240)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert out.stdout.startswith("OK")
+    assert out.stdout.splitlines()[-1].startswith("OK")
 
 
 @pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
@@ -92,6 +99,18 @@ def test_default_device_entry_points_raise_without_a_gpu():
         FedAvgSimulation(bundle, ds, FedAvgConfig(num_clients=2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         from_jax_variables({"params": {}})
+
+    from fedml_tpu_torch.bench import build_fedllm
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.models.transformer import transformer_lm
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        transformer_lm()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_fedllm(embed_dim=16, num_heads=2, num_layers=1, seq_len=16, vocab=32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run.run_experiment(run.ExperimentConfig(
+            algorithm="fedllm", dataset="fed_shakespeare", ci=1))
 
 
 def test_converter_round_trips_the_flax_tree():
