@@ -13,7 +13,10 @@ Phases, in order; any failure exits non-zero:
              (CUDA-graph replays between CUDA events, so host overhead stays
              out):
              conv3x3_mxu at the 6 ResNet-56 shapes (N=64), fp32 (TF32 off)
-             and bf16, with and without moments, plus one epilogue case;
+             and bf16, with and without moments, plus one epilogue case,
+             each case printed with the route it took (``tc``: the
+             tensor-core kernel, bf16 past the stem; ``v2``: the CUDA-core
+             kernel, fp32 and the 3-channel stem);
              flash_attention_fwd at the fedllm bench shape (B 8, L 1024,
              H 10, D 128, causal) in bf16 and fp32, non-causal once, the
              long-context range L 2048/4096/8192 at B*L = 8192, and the
@@ -27,8 +30,10 @@ Phases, in order; any failure exits non-zero:
              compute, SGD lr 1e-3 momentum 0.9 wd 1e-3) on the CIFAR-10
              stand-in with Dirichlet(0.5) clients: two rounds of 4 clients x
              4 steps through ``make_multi_round_fn``, then one
-             ``FedAvgSimulation.run`` round with ``evaluate_global``; each
-             3x3 conv kernel must have run 19 times per forward.
+             ``FedAvgSimulation.run`` round with ``evaluate_global``; the
+             conv kernels must have run 19 times per forward, 18 of each
+             bf16 training forward's (all but the stem) on the
+             tensor-core route (evaluation runs in fp32, on v2).
 5. fedllm  — FedAvg over the transformer LM at the bench width
              (``fedml_tpu_torch.bench.build_fedllm``: width 1280, 12 layers,
              10 heads, L 1024, vocab 8192, 4 clients x batch 8 x 4 steps,
@@ -78,6 +83,7 @@ FLASH_CASES = [
     ("run_py", 64, 80, 4, 16, "fp32", True),
 ]
 BENCH_LAYERS = 12  # flash launches per forward at the bench width
+TC_PER_FORWARD = 18  # tensor-core launches per bf16 ResNet-56 forward: every 3x3 conv but the stem
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor core; fp32 CUDA cores
 TOL = {"fp32": 1e-4, "bf16": 2e-2}
@@ -165,7 +171,9 @@ def phase_kernels():
             if epilogue:
                 kw.update(mul=torch.linspace(0.5, 1.5, co, device=dev),
                           add=torch.linspace(-0.3, 0.3, co, device=dev), relu=True)
+            tc_before = conv3x3_mxu.tc_launches
             got = conv3x3_mxu(x, w, **kw)
+            route = "tc" if conv3x3_mxu.tc_launches > tc_before else "v2"
             ref = conv3x3_plain(x, w, **kw)
             torch.cuda.synchronize()
             gy, ry = (got[0], ref[0]) if moments else (got, ref)
@@ -177,7 +185,7 @@ def phase_kernels():
                 fail(f"{name} {dname} moments={moments}: max abs err {abs_err}")
             rec = {"shape": name, "n": N, "hw": hw, "cin": ci, "cout": co,
                    "stride": stride, "dtype": dname, "moments": moments,
-                   "epilogue": epilogue, "per_forward": per_fwd,
+                   "epilogue": epilogue, "per_forward": per_fwd, "route": route,
                    "max_abs_err": abs_err, "max_rel_err": rel_err}
             if moments:
                 # sum is compared against Σ|y| (its scale: a channel's sum
@@ -198,7 +206,7 @@ def phase_kernels():
                 N, hw, ci, co, stride, dname, moments, epilogue)
             rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
             cases.append(rec)
-            print(f"[kernels] {name:12s} {dname} mom={int(moments)} epi={int(epilogue)} "
+            print(f"[kernels] {name:12s} {dname} mom={int(moments)} epi={int(epilogue)} {route} "
                   f"abs {abs_err:.3g} rel {rel_err:.3g} | kernel {rec['ms']:.4f} ms "
                   f"plain {rec['plain_ms']:.4f} library {rec['library_ms']:.4f} "
                   f"bound {rec['bound_ms']:.4f}")
@@ -336,6 +344,7 @@ def reset_launches():
     from fedml_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     conv3x3_mxu.launches = 0
+    conv3x3_mxu.tc_launches = 0
     flash_attention_fwd.launches = 0
 
 
@@ -344,6 +353,7 @@ def read_launches() -> dict:
     from fedml_tpu_torch.ops.flash_attention import flash_attention_fwd
 
     return {"conv3x3_mxu": conv3x3_mxu.launches,
+            "conv3x3_mxu_tc": conv3x3_mxu.tc_launches,
             "flash_attention_fwd": flash_attention_fwd.launches}
 
 
@@ -363,15 +373,21 @@ def profile_round(fn, state, args):
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    own = {}  # this repo's kernels, by kernel name prefix
+    for e in kernels:
+        for name in ("conv3x3_tc_kernel", "conv3x3_kernel", "moments_reduce_kernel",
+                     "flash_fwd"):
+            if name in e.key:
+                own[name] = own.get(name, 0.0) + e.self_device_time_total / 1e3
     rec = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms, "own_kernels_ms": own,
            "kernel_launches": sum(e.count for e in kernels),
            "top_kernels": [{"name": e.key[:120], "count": e.count,
                             "device_ms": e.self_device_time_total / 1e3}
                            for e in top]}
     print(f"[profile] one round: wall {wall_ms:.1f} ms, "
           f"device busy {busy_ms:.1f} ms, idle share {rec['device_idle_share']:.3f}, "
-          f"{rec['kernel_launches']} kernel launches")
+          f"{rec['kernel_launches']} kernel launches; this repo's kernels (ms): {own}")
     for t in rec["top_kernels"]:
         print(f"[profile]   {t['device_ms']:9.3f} ms  x{t['count']:<6d} {t['name']}")
     return rec
@@ -410,7 +426,7 @@ def phase_main(profile: bool):
     loss = metrics["loss_sum"].cpu().numpy() / metrics["count"].cpu().numpy()
     secs = time.perf_counter() - t0
     seen1 = read_launches()
-    run1 = seen1["conv3x3_mxu"]
+    run1, tc1 = seen1["conv3x3_mxu"], seen1["conv3x3_mxu_tc"]
     fwd1 = clients * steps * rounds
     changed = max((state.variables["params"][k] - before[k]).abs().max().item()
                   for k in before)
@@ -418,13 +434,16 @@ def phase_main(profile: bool):
     print(f"[main] make_multi_round_fn: {rounds} rounds x {clients} clients x {steps} "
           f"steps x {batch}: {secs:.3f} s, {sps:.1f} samples/s, loss per round "
           f"{loss.tolist()}, max |param change| {changed:.3g}, "
-          f"conv3x3_mxu launches {run1} for {fwd1} forwards")
+          f"conv3x3_mxu launches {run1} ({tc1} tensor-core) for {fwd1} forwards")
     if not np.all(np.isfinite(loss)):
         fail(f"non-finite training loss {loss}")
     if not changed > 0:
         fail("the model did not change")
     if run1 != 19 * fwd1:
         fail(f"conv3x3_mxu launched {run1} times, expected {19 * fwd1}")
+    if tc1 != TC_PER_FORWARD * fwd1:
+        fail(f"conv3x3_mxu took the tensor-core route {tc1} times, "
+             f"expected {TC_PER_FORWARD * fwd1}")
     prof = (profile_round(make_multi_round_fn(lu, 1), state,
                           (x, y, m, ns, part, ids)) if profile else None)
 
@@ -438,21 +457,25 @@ def phase_main(profile: bool):
     row = sim.run(1)[-1]
     secs2 = time.perf_counter() - t0
     seen2 = read_launches()
-    run2 = seen2["conv3x3_mxu"]
+    run2, tc2 = seen2["conv3x3_mxu"], seen2["conv3x3_mxu_tc"]
     eval_steps = math.ceil(ds.test_data_num / max(batch, 64))
-    fwd2 = clients * sim.steps_per_epoch + eval_steps
+    train2 = clients * sim.steps_per_epoch
+    fwd2 = train2 + eval_steps
     print(f"[main] FedAvgSimulation.run: 1 round, {clients} clients x "
           f"{sim.steps_per_epoch} steps + eval {eval_steps} batches: {secs2:.3f} s; "
           f"train_loss {row['train_loss']:.4f} test_acc {row['test_acc']:.4f} "
-          f"test_loss {row['test_loss']:.4f}; conv3x3_mxu launches {run2} for "
-          f"{fwd2} forwards")
+          f"test_loss {row['test_loss']:.4f}; conv3x3_mxu launches {run2} "
+          f"({tc2} tensor-core) for {fwd2} forwards")
     if not (math.isfinite(row["train_loss"]) and math.isfinite(row["test_loss"])):
         fail(f"non-finite simulation metrics {row}")
     if run2 != 19 * fwd2:
         fail(f"conv3x3_mxu launched {run2} times, expected {19 * fwd2}")
+    if tc2 != TC_PER_FORWARD * train2:
+        fail(f"conv3x3_mxu took the tensor-core route {tc2} times, "
+             f"expected {TC_PER_FORWARD * train2}")
     if seen1["flash_attention_fwd"] or seen2["flash_attention_fwd"]:
         fail("the ResNet-56 path launched the flash kernel")
-    return {"launches": run1 + run2, "samples_per_s": sps,
+    return {"launches": run1 + run2, "tc_launches": tc1 + tc2, "samples_per_s": sps,
             "multi_round_s": secs, "simulation_round_s": secs2, "profile": prof}
 
 

@@ -12,8 +12,18 @@ and optional per-channel fp32 ``(sum, sumsq)`` of the emitted output —
 the batch statistics train-mode BatchNorm consumes.  Layouts are the JAX
 package's: NHWC activations, HWIO weights.
 
-On a CUDA tensor it launches the sm_90a kernel of ``csrc/conv_mxu.cu``
-(built at first use, see ``ops/build.py``) or raises.  On a CPU tensor it
+On a CUDA tensor it launches a sm_90a kernel of ``csrc/conv_mxu.cu``
+(built at first use, see ``ops/build.py``) or raises.  Two routes, chosen
+by a static condition on the input, never by a failed launch:
+
+- ``tc`` (v3): bf16, ``Cin % 8 == 0``, ``Cin <= 128`` and a 16-byte-aligned
+  ``x``: tensor cores (mma.sync), a cp.async tap gather, a tile plan
+  (``_tile_plan``) that gives ResNet-56's convs at N=64 at least 256
+  blocks.  ``conv3x3_mxu.tc_launches`` counts these launches;
+- ``v2``: everything else (fp32, which must not round through TF32; the
+  3-channel stem; an unaligned ``x``): CUDA-core FMA.
+
+``conv3x3_mxu.launches`` counts the launches of both.  On a CPU tensor it
 runs ``conv3x3_plain``, the same arithmetic in plain PyTorch; the tests
 hold both against the JAX package and ``chip_smoke.py`` holds the kernel
 against the plain version on the card.
@@ -28,14 +38,53 @@ moment cotangents fold into the output cotangent
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 _KERNEL_COUT = (16, 32, 64)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+_TC_MAX_CIN = 128
+_SMS = 132  # streaming multiprocessors of one H100
 _lib: Optional[ctypes.CDLL] = None
+
+
+def _tile_plan(m: int) -> Tuple[int, int]:
+    """``(bm, k_split)`` of the tensor-core kernel for an output of ``m``
+    pixels.  A block owns ``bm`` pixels x all Cout with 4 warps, each a
+    16-row m-tile, so ``k_split = 64 // bm`` warp groups share the K axis:
+    the largest ``bm`` that still gives every SM a block, else 16 (fewer,
+    larger blocks load the resident weights fewer times and write fewer
+    moment partials; ``conv_plan_sweep.py`` times all three).  The launch
+    (``ceil(m / bm)`` blocks) and the moment partials both follow from the
+    plan; the entry point refuses any other pair."""
+    for bm in (64, 32):
+        if -(-m // bm) >= _SMS:
+            break
+    else:
+        bm = 16
+    return bm, 64 // bm
+
+
+def _tc_smem_bytes(ci: int, co: int) -> int:
+    """Dynamic shared memory of a tensor-core block, as ``TcLayout`` in
+    ``csrc/conv_mxu.cu`` lays it out (the entry point checks the two
+    agree): resident weights, the patch ring (reused as the fp32
+    accumulator tile), per-warp moment partials, the tap table."""
+    kpad = -(-9 * ci // 32) * 32
+    weights = kpad * (co + 8) * 2
+    ring = max(5 * 64 * 40 * 2, 64 * (co + 8) * 4)
+    table = -(-3 * (kpad // 8) * 4 // 16) * 16
+    return weights + ring + 2 * 4 * co * 4 + table
+
+
+def _takes_tc(x: torch.Tensor) -> bool:
+    """The tensor-core route's condition (``x`` is a contiguous NHWC
+    tensor the wrapper has checked)."""
+    ci = x.shape[3]
+    return (x.dtype == torch.bfloat16 and ci % 8 == 0 and ci <= _TC_MAX_CIN
+            and x.data_ptr() % 16 == 0)
 
 
 def _check(x: torch.Tensor, w: torch.Tensor, stride: int):
@@ -85,11 +134,15 @@ def _load():
         from fedml_tpu_torch.ops import build
 
         lib = build.load("conv_mxu")
-        lib.conv3x3_mxu_num_blocks.argtypes = [ctypes.c_int, ctypes.c_int]
-        lib.conv3x3_mxu_num_blocks.restype = ctypes.c_int
         lib.conv3x3_mxu_fwd.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 8 + [ctypes.c_void_p])
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_void_p])
         lib.conv3x3_mxu_fwd.restype = ctypes.c_int
+        lib.conv3x3_mxu_tc_fwd.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+        lib.conv3x3_mxu_tc_fwd.restype = ctypes.c_int
+        lib.conv3x3_mxu_moments_reduce.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+        lib.conv3x3_mxu_moments_reduce.restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -114,30 +167,45 @@ def _conv3x3_cuda(x, w, stride, mul, add, relu, moments):
     if w.device != x.device:
         raise ValueError(f"weights on {w.device}, input on {x.device}")
     lib = _load()
+    tc = _takes_tc(x)
     w2 = w.to(x.dtype).reshape(9 * ci, co).contiguous()
+    if tc and w2.data_ptr() % 16:
+        w2 = w2.clone()  # a fresh allocation is aligned
     mul_t = _channel_vec(mul, co, x.device)
     add_t = _channel_vec(add, co, x.device)
+    m = n * ho * wo
+    if tc:
+        bm, k_split = _tile_plan(m)
+        route_args = (bm, k_split, _tc_smem_bytes(ci, co))
+    else:
+        bm = 4096 // co  # the CUDA-core kernel: 256 threads x 4 pixels x 4 channels
+        route_args = (int(x.dtype == torch.bfloat16), bm)
     y = torch.empty((n, ho, wo, co), dtype=x.dtype, device=x.device)
     psum = psq = None
     if moments:
-        nb = lib.conv3x3_mxu_num_blocks(n * ho * wo, co)
-        psum = torch.empty((nb, co), dtype=torch.float32, device=x.device)
-        psq = torch.empty((nb, co), dtype=torch.float32, device=x.device)
+        # (sum, sumsq) partials of each block, then summed over the blocks
+        partials = torch.empty((2, -(-m // bm), co), dtype=torch.float32, device=x.device)
+        psum, psq = partials
+        mom = torch.empty((2, co), dtype=torch.float32, device=x.device)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    fwd = lib.conv3x3_mxu_tc_fwd if tc else lib.conv3x3_mxu_fwd
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.conv3x3_mxu_fwd(
-            ptr(x), ptr(w2), ptr(mul_t), ptr(add_t), ptr(y), ptr(psum),
-            ptr(psq), n, h, wd, ci, co, stride, int(relu),
-            int(x.dtype == torch.bfloat16), stream)
+        err = fwd(ptr(x), ptr(w2), ptr(mul_t), ptr(add_t), ptr(y), ptr(psum),
+                  ptr(psq), n, h, wd, ci, co, stride, int(relu), *route_args, stream)
+        if moments and err == 0:
+            err = lib.conv3x3_mxu_moments_reduce(
+                ptr(partials), ptr(mom), partials.shape[1], co, stream)
     if err != 0:
         raise RuntimeError(f"conv3x3_mxu kernel launch failed: cudaError {err}")
     conv3x3_mxu.launches += 1
+    conv3x3_mxu.tc_launches += int(tc)
     if moments:
-        return y, psum.sum(0), psq.sum(0)
+        total, sq = mom
+        return y, total, sq
     return y
 
 
@@ -147,8 +215,9 @@ def conv3x3_mxu(x, w, *, stride: int = 1, mul=None, add=None,
 
     x [N, H, W, Cin] · w [3, 3, Cin, Cout] → out [N, H/s, W/s, Cout] in
     x's dtype, or ``(out, sum, sumsq)`` with ``moments=True``.  A CUDA
-    tensor launches the kernel (``conv3x3_mxu.launches`` counts the
-    launches); a CPU tensor runs ``conv3x3_plain``."""
+    tensor launches a kernel (``conv3x3_mxu.launches`` counts the
+    launches, ``conv3x3_mxu.tc_launches`` those of the tensor-core route);
+    a CPU tensor runs ``conv3x3_plain``."""
     if x.device.type == "cuda":
         return _conv3x3_cuda(x, w, stride, mul, add, relu, moments)
     if x.device.type != "cpu":
@@ -158,6 +227,7 @@ def conv3x3_mxu(x, w, *, stride: int = 1, mul=None, add=None,
 
 
 conv3x3_mxu.launches = 0
+conv3x3_mxu.tc_launches = 0
 
 
 def _conv_vjp(x, w, stride, dy):

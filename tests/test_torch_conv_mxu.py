@@ -3,9 +3,14 @@ held against the JAX package's (``fedml_tpu/ops/conv_mxu.py``, Pallas in
 interpret mode, and its XLA reference) on the same numpy inputs.
 
 On the CPU the port's wrapper runs its plain version; the hand-written
-CUDA kernel is held against that plain version on the card by
+CUDA kernels are held against that plain version on the card by
 ``tests/test_torch_conv_mxu_gpu.py`` (skipped without a GPU) and by
-``chip_smoke.py``.  Tolerances are those of ``tests/test_conv_mxu.py``."""
+``chip_smoke.py``.  Tolerances are those of ``tests/test_conv_mxu.py``.
+The tile plan that sizes the kernels' launches is pure Python and is
+checked here."""
+
+import contextlib
+import types
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +24,7 @@ from fedml_tpu.ops.conv_mxu import (
     conv3x3_moments as jconv3x3_moments,
     conv3x3_mxu as jconv3x3_mxu,
 )
+from fedml_tpu_torch.ops import conv_mxu as conv_mod
 from fedml_tpu_torch.ops.conv_mxu import (
     conv3x3,
     conv3x3_moments,
@@ -149,3 +155,85 @@ def test_cpu_tensor_takes_plain_version_and_counts_no_launch():
     before = conv3x3_mxu.launches
     np.testing.assert_array_equal(_np(conv3x3_mxu(tx, tw)), _np(conv3x3_plain(tx, tw)))
     assert conv3x3_mxu.launches == before
+
+
+# ResNet-56's 3x3 convs at N=64 (spatial, Cin, Cout, stride, route): the
+# stem on the CUDA-core kernel, the rest on the tensor-core kernel
+RESNET56_SHAPES = [(32, 3, 16, 1, "v2"), (32, 16, 16, 1, "tc"), (32, 32, 32, 2, "tc"),
+                   (16, 32, 32, 1, "tc"), (16, 64, 64, 2, "tc"), (8, 64, 64, 1, "tc")]
+H100_SMS = 132
+H100_SMEM_PER_BLOCK = 232448  # 227 KB
+
+
+@pytest.mark.parametrize("hw,ci,co,stride,route", RESNET56_SHAPES[1:])
+def test_tile_plan_fills_the_card(hw, ci, co, stride, route):
+    m = 64 * (hw // stride) ** 2
+    bm, k_split = conv_mod._tile_plan(m)
+    assert (bm, k_split) in {(64, 1), (32, 2), (16, 4)}
+    assert -(-m // bm) >= H100_SMS
+
+
+@pytest.mark.parametrize("ci,co", [(16, 16), (32, 32), (64, 64), (8, 16), (128, 64)])
+def test_tc_shared_memory_fits_a_block(ci, co):
+    """Every (Cin, Cout) the tensor-core route takes, up to its Cin limit."""
+    assert conv_mod._tc_smem_bytes(ci, co) <= H100_SMEM_PER_BLOCK
+
+
+class _FakeLib:
+    """Stands in for the built library: records each launch's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def conv3x3_mxu_tc_fwd(self, *args):
+        self.calls.append(("tc", args))
+        return 0
+
+    def conv3x3_mxu_fwd(self, *args):
+        self.calls.append(("v2", args))
+        return 0
+
+    def conv3x3_mxu_moments_reduce(self, part, out, nb, co, stream):
+        self.reduced_rows = nb
+        return 0
+
+
+@pytest.mark.parametrize("hw,ci,co,stride,route", RESNET56_SHAPES)
+def test_wrapper_allocates_partials_for_the_launched_blocks(monkeypatch, hw, ci, co,
+                                                            stride, route):
+    """The moment partials the wrapper allocates have one row per block the
+    entry point launches for the rows it is given (ceil(M / rows), the
+    kernel's grid); the route and its counter follow the static condition."""
+    lib = _FakeLib()
+    partials = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):
+        t = empty(*shape, **kw)
+        if kw.get("dtype") == torch.float32:
+            partials.append(tuple(t.shape))
+        return t
+
+    monkeypatch.setattr(conv_mod, "_load", lambda: lib)
+    monkeypatch.setattr(torch, "empty", recording_empty)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d=None: types.SimpleNamespace(cuda_stream=0))
+    x = torch.zeros(64, hw, hw, ci, dtype=torch.bfloat16)
+    w = torch.zeros(3, 3, ci, co, dtype=torch.bfloat16)
+    before = (conv3x3_mxu.launches, conv3x3_mxu.tc_launches)
+    conv_mod._conv3x3_cuda(x, w, stride, None, None, False, True)
+    assert (conv3x3_mxu.launches, conv3x3_mxu.tc_launches) == (
+        before[0] + 1, before[1] + int(route == "tc"))
+    (got_route, args), = lib.calls
+    assert got_route == route
+    n, h, wd, ci_, co_, stride_ = args[7:13]
+    m = n * (h // stride_) * (wd // stride_)
+    if route == "tc":
+        bm, k_split, smem = args[14:17]
+        assert (bm, k_split) == conv_mod._tile_plan(m)
+        assert smem == conv_mod._tc_smem_bytes(ci_, co_)
+    else:
+        is_bf16, bm = args[14:16]
+        assert is_bf16 == 1 and bm == 4096 // co_
+    assert partials[0] == (2, -(-m // bm), co) and lib.reduced_rows == -(-m // bm)
