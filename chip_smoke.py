@@ -19,13 +19,22 @@ Phases, in order; any failure exits non-zero:
              kernel, fp32 and the 3-channel stem);
              flash_attention_fwd at the fedllm bench shape (B 8, L 1024,
              H 10, D 128, causal) in bf16 and fp32, non-causal once, the
-             long-context range L 2048/4096/8192 at B*L = 8192, and the
-             experiments/run.py shape (L 80, H 4, D 16, fp32).
+             long-context range L 2048/4096/8192 at B*L = 8192, GPT-2
+             small's head width (H 20, D 64), and the experiments/run.py
+             shape (L 80, H 4, D 16) in fp32 and bf16, each case printed with the
+             route it took (``wgmma``: bf16 with D 64/128; ``mma``: bf16
+             with D <= 32; ``fma``: fp32).
 3. check   — the kernel-conv ResNet-56 against the library-conv ResNet-56,
              and the flash-kernel transformer against the plain-attention
              transformer, each with the same variables on a small batch
-             (fp32, TF32 off); the flash op's dq/dk/dv against autograd
-             through the plain version.
+             (fp32, TF32 off, and the transformer once more in bf16, where
+             attention takes the wgmma route, against the kernel's own
+             arithmetic in plain PyTorch, p rounded to bf16 before P·V,
+             at a fixed limit that a planted stale V tile must exceed);
+             the flash op's dq/dk/dv
+             against autograd through the plain version (fp32), and in
+             bf16 against the same backward fed the plain version's O and
+             LSE.
 4. main    — FedAvg over ResNet-56 (Bottleneck [6,6,6], full width, bf16
              compute, SGD lr 1e-3 momentum 0.9 wd 1e-3) on the CIFAR-10
              stand-in with Dirichlet(0.5) clients: two rounds of 4 clients x
@@ -41,7 +50,8 @@ Phases, in order; any failure exits non-zero:
              through ``make_multi_round_fn``; then ``experiments.run.main``
              for fedllm at its defaults (one round through
              ``FedAvgSimulation``).  The flash kernel must have run once per
-             layer per forward.
+             layer per forward, at the bench width every time on the wgmma
+             route.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -72,7 +82,7 @@ CONV_SHAPES = [
 ]
 # (name, B, L, H, D, dtype, causal): the fedllm bench shape first; B*L = 8192
 # across the long-context range; run.py's fedllm defaults (width 64 / 4 heads,
-# 80-char windows, batch 64)
+# 80-char windows, batch 64), in fp32 and in bf16 (the mma route)
 FLASH_CASES = [
     ("bench", 8, 1024, 10, 128, "bf16", True),
     ("bench", 8, 1024, 10, 128, "fp32", True),
@@ -80,51 +90,31 @@ FLASH_CASES = [
     ("long2k", 4, 2048, 10, 128, "bf16", True),
     ("long4k", 2, 4096, 10, 128, "bf16", True),
     ("long8k", 1, 8192, 10, 128, "bf16", True),
+    ("bench_d64", 8, 1024, 20, 64, "bf16", True),
     ("run_py", 64, 80, 4, 16, "fp32", True),
+    ("run_py_bf16", 64, 80, 4, 16, "bf16", True),
 ]
 BENCH_LAYERS = 12  # flash launches per forward at the bench width
 TC_PER_FORWARD = 18  # tensor-core launches per bf16 ResNet-56 forward: every 3x3 conv but the stem
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}  # dense bf16 tensor core; fp32 CUDA cores
 TOL = {"fp32": 1e-4, "bf16": 2e-2}
 MOMENT_RTOL = 1e-3
 LSE_TOL = 1e-3
+# bf16 transformer logits, flash kernel vs the kernel's arithmetic in plain
+# PyTorch (attention_as_kernel): at most this many bf16 spacings at the
+# largest logit (the card read one; PERF.md)
+BF16_LOGITS_ULPS = 2
 
 
 def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def time_ms(fn, reps: int = 50) -> float:
-    """Device time of one ``fn()``: warm up, capture it in a CUDA graph,
-    replay ``reps`` times between two CUDA events."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def conv_bound_ms(n, hw, ci, co, stride, dtype_name, moments, epilogue):
     """(ms to move the bytes, ms to do the FLOPs): each input read once and
     each output written once over HBM; FLOPs at the card's peak for the
     type.  The bound is the larger."""
+    from fedml_tpu_torch.utils.timing import HBM_BYTES_PER_S, PEAK_FLOPS
+
     es = 2 if dtype_name == "bf16" else 4
     ho = hw // stride
     nbytes = (n * hw * hw * ci + 9 * ci * co + n * ho * ho * co) * es
@@ -155,6 +145,7 @@ def phase_kernels():
     import torch.nn.functional as F
 
     from fedml_tpu_torch.ops.conv_mxu import conv3x3_mxu, conv3x3_plain
+    from fedml_tpu_torch.utils.timing import kernel_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -198,9 +189,9 @@ def phase_kernels():
                 rec.update(sum_rel_err=s_err, sumsq_rel_err=sq_err)
             wn = w.permute(3, 2, 0, 1)
             xn = x.permute(0, 3, 1, 2)
-            rec["ms"] = time_ms(lambda: conv3x3_mxu(x, w, **kw))
-            rec["plain_ms"] = time_ms(lambda: conv3x3_plain(x, w, **kw))
-            rec["library_ms"] = time_ms(
+            rec["ms"] = kernel_ms(lambda: conv3x3_mxu(x, w, **kw))
+            rec["plain_ms"] = kernel_ms(lambda: conv3x3_plain(x, w, **kw))
+            rec["library_ms"] = kernel_ms(
                 lambda: F.conv2d(xn, wn, stride=stride, padding=1))
             rec["bytes_ms"], rec["ops_ms"] = conv_bound_ms(
                 N, hw, ci, co, stride, dname, moments, epilogue)
@@ -238,22 +229,13 @@ def phase_check():
         fail("kernel-conv ResNet-56 disagrees with the library-conv model")
 
 
-def flash_bound_ms(b, lq, lk, h, d, dtype_name, causal):
-    """(ms to move the bytes, ms to do the FLOPs): q, k, v read once, o and
-    the fp32 LSE written once; the two products over the score pairs this
-    mask leaves visible, at the card's peak for the type."""
-    es = 2 if dtype_name == "bf16" else 4
-    nbytes = (2 * b * lq * h * d + 2 * b * lk * h * d) * es + b * h * lq * 4
-    pairs = lq * (lq + 1) // 2 if causal else lq * lk
-    flops = 4.0 * b * h * d * pairs
-    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype_name]
-
-
 def phase_flash_kernels():
     import torch
     import torch.nn.functional as F
 
-    from fedml_tpu_torch.ops.flash_attention import attention_plain, flash_attention_fwd
+    from fedml_tpu_torch.ops.flash_attention import (
+        _flash_plan, attention_plain, flash_attention_fwd)
+    from fedml_tpu_torch.utils.timing import flash_bound_ms, kernel_ms
 
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(1)
@@ -264,7 +246,12 @@ def phase_flash_kernels():
         # transformer hands them to the kernel
         qkv = torch.randn(b, L, 3, h, d, generator=g).to(dev, dtype)
         q, k, v = qkv.unbind(2)
+        wg_before = flash_attention_fwd.wgmma_launches
         o, lse = flash_attention_fwd(q, k, v, causal=causal)
+        route = ("wgmma" if flash_attention_fwd.wgmma_launches > wg_before
+                 else "mma" if dname == "bf16" else "fma")
+        if route != _flash_plan(dtype, d, L, L, causal).route:
+            fail(f"flash {name} {dname}: took the {route} route")
         ro, rlse = attention_plain(q, k, v, causal)
         torch.cuda.synchronize()
         err = (o.float() - ro.float()).abs().max().item()
@@ -276,21 +263,52 @@ def phase_flash_kernels():
         del ro, rlse
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         rec = {"case": name, "b": b, "l": L, "h": h, "d": d, "dtype": dname,
-               "causal": causal, "max_abs_err": err, "lse_max_abs_err": lse_err,
-               "ms": time_ms(lambda: flash_attention_fwd(q, k, v, causal=causal)),
-               "plain_ms": time_ms(lambda: attention_plain(q, k, v, causal), reps=5),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               "causal": causal, "route": route, "max_abs_err": err,
+               "lse_max_abs_err": lse_err,
+               "ms": kernel_ms(lambda: flash_attention_fwd(q, k, v, causal=causal)),
+               "plain_ms": kernel_ms(lambda: attention_plain(q, k, v, causal), reps=5),
+               "library_ms": kernel_ms(lambda: F.scaled_dot_product_attention(
                    qt, kt, vt, is_causal=causal))}
         rec["bytes_ms"], rec["ops_ms"] = flash_bound_ms(b, L, L, h, d, dname, causal)
         rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
         cases.append(rec)
         print(f"[kernels] flash {name:15s} B{b} L{L} H{h} D{d} {dname} causal={int(causal)} "
-              f"O abs {err:.3g} LSE abs {lse_err:.3g} | kernel {rec['ms']:.4f} ms "
+              f"{route} O abs {err:.3g} LSE abs {lse_err:.3g} | kernel {rec['ms']:.4f} ms "
               f"plain {rec['plain_ms']:.4f} library {rec['library_ms']:.4f} "
               f"bound {rec['bound_ms']:.4f} ({'bytes' if rec['bytes_ms'] >= rec['ops_ms'] else 'ops'})")
         del qkv, q, k, v, o, lse
         torch.cuda.empty_cache()
     return cases
+
+
+def attention_as_kernel(q, k, v, causal, bn: int = 128):
+    """The wgmma kernel's arithmetic in plain PyTorch over [B, L, H, D]:
+    fp32 scores in the log2 domain, a running row max per ``bn``-key tile,
+    p = 2^(s·log2(e)/√D − m) rounded to bf16 before P·V while the row sum
+    takes fp32 p, acc rescaled per tile, O = acc / max(l, 1e-30) in the
+    input dtype.  Only the fp32 summation order differs from the kernel's."""
+    import torch
+
+    from fedml_tpu_torch.ops.flash_attention import NEG_INF
+
+    lq, lk, d = q.shape[1], k.shape[1], q.shape[3]
+    qf, kf, vf = (t.float().transpose(1, 2) for t in (q, k, v))
+    c = math.log2(math.e) / math.sqrt(d)
+    m = torch.full(qf.shape[:3] + (1,), NEG_INF, device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qf)
+    qpos = torch.arange(lq, device=q.device)[:, None]
+    for j in range(0, lk, bn):
+        s = qf @ kf[:, :, j:j + bn].transpose(-1, -2)
+        if causal:
+            s = s.masked_fill(j + torch.arange(s.shape[-1], device=q.device) > qpos, NEG_INF)
+        mn = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+        alpha = torch.exp2(m - mn)
+        p = torch.exp2(s * c - mn)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + p.to(torch.bfloat16).float() @ vf[:, :, j:j + bn]
+        m = mn
+    return (acc / l.clamp_min(1e-30)).transpose(1, 2).to(q.dtype)
 
 
 def phase_flash_check():
@@ -301,7 +319,7 @@ def phase_flash_check():
 
     from fedml_tpu_torch.models.transformer import transformer_lm
     from fedml_tpu_torch.ops.flash_attention import (
-        attention_plain, flash_attention_fwd, flash_attention_with_lse)
+        _flash_bwd, attention_plain, flash_attention_fwd, flash_attention_with_lse)
 
     kw = dict(vocab_size=8192, embed_dim=1280, num_heads=10, num_layers=2,
               seq_len=1024)
@@ -319,6 +337,37 @@ def phase_flash_check():
         fail("the kernel transformer did not launch the flash kernel once per layer")
     if not torch.allclose(lk, lp, rtol=1e-3, atol=1e-3):
         fail("the flash-kernel transformer disagrees with the plain-attention one")
+    # the same model in bf16, where attention takes the wgmma route, against
+    # the kernel's arithmetic in plain PyTorch (p rounded to bf16 before P·V,
+    # as the TPU kernel rounds it too); the same reference with one stale V
+    # tile (keys 128-255 multiplied by keys 0-127's V: a ring stage read
+    # before it was refilled) must fall outside the tolerance
+    def stale_v_tile(q, k, v, c):
+        v = v.clone()
+        v[:, 128:256] = v[:, :128]
+        return attention_as_kernel(q, k, v, c)
+
+    as_kernel = transformer_lm(**kw, attn_fn=attention_as_kernel)
+    faulty = transformer_lm(**kw, attn_fn=stale_v_tile)
+    half = {"params": {n: t.to(torch.bfloat16) for n, t in variables["params"].items()}}
+    before = flash_attention_fwd.wgmma_launches
+    with torch.no_grad():
+        lkh = kern.apply_eval(half, x).float()
+        lrh, lfh, lph = (m.apply_eval(half, x).float() for m in (as_kernel, faulty, plain))
+    err, fault_err, p_err = ((a - lrh).abs().max().item() for a in (lkh, lfh, lph))
+    top = lrh.abs().max().item()
+    limit = BF16_LOGITS_ULPS * 2.0 ** (math.floor(math.log2(top)) - 7)
+    print(f"[check] transformer bf16 logits (max |logit| {top:.4g}) max abs err: flash "
+          f"kernel (wgmma) vs its arithmetic in plain PyTorch {err:.4g} (limit {limit:.4g}, "
+          f"{BF16_LOGITS_ULPS} bf16 spacings); a stale V tile {fault_err:.4g}; plain "
+          f"attention (fp32 p) {p_err:.4g}; flash kernel vs plain attention "
+          f"{(lkh - lph).abs().max().item():.4g}")
+    if flash_attention_fwd.wgmma_launches - before != 2:
+        fail("the bf16 transformer did not take the wgmma route once per layer")
+    if not err <= limit:
+        fail("the bf16 flash-kernel transformer disagrees with the kernel's arithmetic")
+    if not fault_err > limit:
+        fail("the bf16 transformer check cannot tell a stale V tile from the kernel")
 
     g = torch.Generator().manual_seed(5)
     q, k, v, cot = (torch.randn(2, 1024, 10, 128, generator=g).cuda() for _ in range(4))
@@ -337,6 +386,23 @@ def phase_flash_check():
               + " ".join(f"{e:.3g}" for e in errs))
         if not all(torch.allclose(a, b, rtol=1e-3, atol=1e-3) for a, b in zip(got, want)):
             fail("flash backward disagrees with autograd through the plain version")
+        # bf16: the wgmma forward's O and LSE through the backward, against
+        # the same backward fed the plain version's O and LSE
+        qb, kb, vb, cotb = (t.to(torch.bfloat16) for t in (q, k, v, cot))
+        before = flash_attention_fwd.wgmma_launches
+        leaves = [t.clone().requires_grad_(True) for t in (qb, kb, vb)]
+        o, lse = flash_attention_with_lse(*leaves, causal, 1024, 1024)
+        got = torch.autograd.grad((o * cotb).sum() + (lse * w).sum(), leaves)
+        ro, rlse = attention_plain(qb, kb, vb, causal)
+        want = _flash_bwd(qb, kb, vb, ro, rlse, cotb, w, causal, 1024)
+        errs = [(a.float() - b.float()).abs().max().item() for a, b in zip(got, want)]
+        print(f"[check] flash dq/dk/dv from the wgmma forward vs the plain forward (bf16, "
+              f"causal={int(causal)}): max abs err " + " ".join(f"{e:.3g}" for e in errs))
+        if flash_attention_fwd.wgmma_launches - before != 1:
+            fail("the bf16 flash op did not take the wgmma route")
+        if not all(torch.allclose(a.float(), b.float(), rtol=TOL["bf16"], atol=TOL["bf16"])
+                   for a, b in zip(got, want)):
+            fail("the backward of the wgmma forward disagrees with that of the plain one")
 
 
 def reset_launches():
@@ -346,6 +412,7 @@ def reset_launches():
     conv3x3_mxu.launches = 0
     conv3x3_mxu.tc_launches = 0
     flash_attention_fwd.launches = 0
+    flash_attention_fwd.wgmma_launches = 0
 
 
 def read_launches() -> dict:
@@ -354,7 +421,8 @@ def read_launches() -> dict:
 
     return {"conv3x3_mxu": conv3x3_mxu.launches,
             "conv3x3_mxu_tc": conv3x3_mxu.tc_launches,
-            "flash_attention_fwd": flash_attention_fwd.launches}
+            "flash_attention_fwd": flash_attention_fwd.launches,
+            "flash_attention_fwd_wgmma": flash_attention_fwd.wgmma_launches}
 
 
 def profile_round(fn, state, args):
@@ -533,6 +601,9 @@ def phase_fedllm(profile: bool):
     if seen["flash_attention_fwd"] != BENCH_LAYERS * fwd:
         fail(f"flash_attention_fwd launched {seen['flash_attention_fwd']} times, "
              f"expected {BENCH_LAYERS * fwd}")
+    if seen["flash_attention_fwd_wgmma"] != BENCH_LAYERS * fwd:
+        fail(f"flash_attention_fwd took the wgmma route "
+             f"{seen['flash_attention_fwd_wgmma']} times, expected {BENCH_LAYERS * fwd}")
     if seen["conv3x3_mxu"]:
         fail("the fedllm path launched the conv kernel")
     rec["profile"] = profile_round(warm, state, args) if profile else None
@@ -566,6 +637,8 @@ def phase_fedllm(profile: bool):
              f"expected {cfg.num_layers * fwd2}")
     rec.update(run_main_s=secs2, run_main_launches=seen2)
     rec["flash_launches"] = seen["flash_attention_fwd"] + seen2["flash_attention_fwd"]
+    rec["flash_wgmma_launches"] = (seen["flash_attention_fwd_wgmma"]
+                                   + seen2["flash_attention_fwd_wgmma"])
     return rec
 
 
@@ -623,6 +696,7 @@ def main() -> int:
         "source": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "fedml_tpu/ops/flash_attention.py:35",
         "launches": fedllm_rec["flash_launches"],
+        "wgmma_launches": fedllm_rec["flash_wgmma_launches"],
         "max_abs_err": bench["max_abs_err"],
         "ms": BENCH_LAYERS * bench["ms"],
         "plain_ms": BENCH_LAYERS * bench["plain_ms"],

@@ -6,7 +6,7 @@
 For each ResNet-56 3x3 conv past the stem (N=64, bf16, ``chip_smoke.CONV_SHAPES``)
 and each ``(bm, k_split)`` the kernel takes, it checks the kernel against
 ``conv3x3_plain`` and times one call with and without moments (CUDA-graph
-replays between CUDA events, ``chip_smoke.time_ms``), marking the plan
+replays between CUDA events, ``utils.timing.kernel_ms``), marking the plan
 ``ops/conv_mxu.py::_tile_plan`` picks.  It is how that plan was chosen.
 For the chosen plan it also reads each kernel's device time per call from
 ``torch.profiler``, beside the library conv's.
@@ -21,7 +21,7 @@ import math
 import subprocess
 import sys
 
-from chip_smoke import CONV_SHAPES, N, time_ms
+from chip_smoke import CONV_SHAPES, N
 
 TOL = 2e-2  # bf16, as chip_smoke's
 PLANS = [(64, 1), (32, 2), (16, 4)]
@@ -56,6 +56,7 @@ def main() -> int:
         print("conv_plan_sweep: no CUDA device; this script needs one GPU", file=sys.stderr)
         return 1
     from fedml_tpu_torch.ops import conv_mxu as conv_mod
+    from fedml_tpu_torch.utils.timing import kernel_ms
 
     chosen_plan = conv_mod._tile_plan
     dev = torch.device("cuda")
@@ -75,8 +76,8 @@ def main() -> int:
                 got = conv_mod.conv3x3_mxu(x, w, stride=stride).float()
                 err = (got - ref).abs().max().item()
                 ok = torch.allclose(got, ref, rtol=TOL, atol=TOL)
-                ms = time_ms(lambda: conv_mod.conv3x3_mxu(x, w, stride=stride))
-                ms_mom = time_ms(lambda: conv_mod.conv3x3_mxu(x, w, stride=stride, moments=True))
+                ms = kernel_ms(lambda: conv_mod.conv3x3_mxu(x, w, stride=stride))
+                ms_mom = kernel_ms(lambda: conv_mod.conv3x3_mxu(x, w, stride=stride, moments=True))
             finally:
                 conv_mod._tile_plan = chosen_plan
             row = {"shape": name, "bm": plan[0], "k_split": plan[1],

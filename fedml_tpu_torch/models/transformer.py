@@ -34,7 +34,7 @@ AttnFn = Callable
 def _default_attn(q, k, v, causal):
     """The flash-attention op with blocks ``pick_block(L)``, or ``L`` where
     no block of at least 128 divides it.  The blocks shape only the
-    backward's KV blocks; the CUDA kernel tiles by 64 whatever L is."""
+    backward's KV blocks; the CUDA kernel tiles by its own plan whatever L is."""
     L = q.shape[1]
     block = pick_block(L) or L
     return flash_attention(q, k, v, causal=causal, block_q=block, block_k=block)

@@ -1,4 +1,5 @@
-"""Round timing (port of ``fedml_tpu/utils/timing.py``).
+"""Round timing (port of ``fedml_tpu/utils/timing.py``), and the kernel
+timing and H100 bounds that ``chip_smoke.py`` and the kernel sweeps share.
 
 PyTorch returns before the device finishes, so every timed region ends
 with ``torch.cuda.synchronize()`` AND a scalar read-back of the metrics
@@ -55,3 +56,46 @@ def measure_rounds(
             raise FloatingPointError(
                 f"benchmark round produced non-finite metrics: {scalar}")
     return float(np.median(times)), state
+
+
+# One H100 SXM: HBM3 rate and dense peaks (bf16 tensor cores; fp32 CUDA cores)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+
+
+def kernel_ms(fn: Callable, reps: int = 50) -> float:
+    """Device time of one ``fn()``: warm up on a side stream, capture one
+    call in a CUDA graph, replay it ``reps`` times between two CUDA events
+    (so host launch overhead stays out)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def flash_bound_ms(b: int, lq: int, lk: int, h: int, d: int, dtype_name: str,
+                   causal: bool) -> Tuple[float, float]:
+    """(ms to move the bytes, ms to do the FLOPs) of one flash forward: q,
+    k, v read once, o and the fp32 LSE written once; the two products over
+    the score pairs the mask leaves visible, at the peak for the type.  The
+    bound is the larger."""
+    es = 2 if dtype_name == "bf16" else 4
+    nbytes = (2 * b * lq * h * d + 2 * b * lk * h * d) * es + b * h * lq * 4
+    pairs = lq * (lq + 1) // 2 if causal else lq * lk
+    flops = 4.0 * b * h * d * pairs
+    return 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * flops / PEAK_FLOPS[dtype_name]

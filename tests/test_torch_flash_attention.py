@@ -19,6 +19,11 @@ import torch
 from fedml_tpu.ops import flash_attention as jflash
 from fedml_tpu.parallel.ring_attention import dense_attention
 from fedml_tpu_torch.ops.flash_attention import (
+    _flash_plan,
+    _kv_tiles,
+    _q_tile_order,
+    _schedule_table,
+    _wg_schedule,
     attention_plain,
     flash_attention,
     flash_attention_fwd,
@@ -156,3 +161,133 @@ def test_attn_fn_and_pick_block_mirror_jax():
     for n in (80, 128, 1000, 1024, 1536, 4096, 8192, 3 * 128):
         assert pick_block(n) == jflash.pick_block(n)
         assert pick_block(n, 256) == jflash.pick_block(n, 256)
+
+
+# ---------------------------------------------------------------- the plan
+# ``_flash_plan`` decides the CUDA route by one static condition, and for
+# the wgmma route the schedule the kernel runs; the C entry point launches
+# the plan as given (refusing only kernels, tiles and blocks it was not
+# built with), so these pin what the card launches.
+
+H100_SMEM = 232_448  # dynamic shared memory one H100 block may use
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
+    (torch.bfloat16, 32, "mma"), (torch.bfloat16, 16, "mma"), (torch.bfloat16, 8, "mma"),
+    (torch.float32, 128, "fma"), (torch.float32, 64, "fma"), (torch.float32, 32, "fma"),
+    (torch.float32, 16, "fma"), (torch.float32, 8, "fma")])
+def test_plan_route_for_every_width_the_kernel_takes(dtype, d, route):
+    plan = _flash_plan(dtype, d, 1024, 1024, True, batch=8, heads=10)
+    assert plan.route == route
+    assert plan.smem_bytes <= H100_SMEM
+    if route == "wgmma":
+        # 128 x 128 tiles; Q, the staged O and a 2-stage K and V ring of
+        # 128-row boxes of 64 bf16, barriers, alignment slack; persistent:
+        # one block per SM over the 8 x 10 x 8 q tiles
+        assert (plan.bq, plan.bn, plan.stages, plan.threads) == (128, 128, 2, 384)
+        assert plan.smem_bytes == 6 * (d // 64) * 128 * 128 + 128 + 1024
+        assert plan.grid == (132, 1, 1)
+        small = _flash_plan(dtype, d, 200, 200, True, batch=2, heads=3)
+        assert small.grid == (12, 1, 1)  # fewer q tiles than SMs: one each
+    else:
+        assert (plan.bq, plan.bn) == (64, 64) and plan.grid == (16, 10, 8)
+
+
+@pytest.mark.parametrize("d", [0, 4, 24, 48, 96, 256])
+def test_plan_refuses_other_widths(d):
+    for dtype in (torch.bfloat16, torch.float32):
+        with pytest.raises(ValueError, match="head width"):
+            _flash_plan(dtype, d, 128, 128, False)
+
+
+def test_plan_refuses_other_dtypes():
+    with pytest.raises(TypeError):
+        _flash_plan(torch.float16, 128, 128, 128, False)
+
+
+@pytest.mark.parametrize("lq", [80, 200, 1000, 1088, 8192])
+def test_plan_orders_q_tiles_heaviest_first_under_causal(lq):
+    for d in (64, 128):
+        plan = _flash_plan(torch.bfloat16, d, lq, lq, True, batch=2, heads=3)
+        order = _q_tile_order(plan, lq)
+        assert sorted(order) == list(range(-(-lq // 128)))
+        work = [_kv_tiles(plan, qt, lq, lq, True) for qt in order]
+        assert work == sorted(work, reverse=True) and work[0] == -(-lq // 128)
+        # every block starts with a q tile no lighter than any run later
+        blocks = _wg_schedule(plan, lq, lq, 2, 3, True)
+        later = [w for blk in blocks for *_, w in blk[1:]]
+        assert min(blk[0][3] for blk in blocks) >= max(later, default=0)
+        # without the mask every tile has the same work
+        flat = _flash_plan(torch.bfloat16, d, lq, lq, False, batch=2, heads=3)
+        assert _q_tile_order(flat, lq) == list(range(-(-lq // 128)))
+    # v2's routes launch one block per q tile in the hardware's order
+    for dtype, d in ((torch.bfloat16, 32), (torch.float32, 128)):
+        plan = _flash_plan(dtype, d, lq, lq, True, batch=2, heads=3)
+        assert not plan.heavy_first and plan.grid == (-(-lq // 64), 3, 2)
+
+
+@pytest.mark.parametrize("b,lq,h,causal", [(8, 1024, 10, True), (8, 1024, 20, True),
+                                           (1, 8192, 10, True), (4, 2048, 10, True),
+                                           (8, 1024, 10, False), (2, 200, 3, True),
+                                           (64, 80, 4, True)])
+def test_wgmma_schedule_deals_every_q_tile_once_and_evenly(b, lq, h, causal):
+    """The persistent blocks cover each (q tile, head, batch) exactly once;
+    each block starts heavy, and no block carries more than the mean work
+    plus one q tile's (the bound of a greedy heaviest-first deal)."""
+    plan = _flash_plan(torch.bfloat16, 128, lq, lq, causal, batch=b, heads=h)
+    blocks = _wg_schedule(plan, lq, lq, b, h, causal)
+    assert len(blocks) == plan.grid[0] and all(blocks)
+    tiles = [t[:3] for blk in blocks for t in blk]
+    n_qt = -(-lq // 128)
+    assert sorted(tiles) == sorted((qt, hh, bb) for qt in range(n_qt)
+                                   for hh in range(h) for bb in range(b))
+    assert all(w == _kv_tiles(plan, qt, lq, lq, causal) for blk in blocks
+               for qt, _, _, w in blk)
+    work = [sum(w for *_, w in blk) for blk in blocks]
+    assert max(work) <= sum(work) / len(work) + _kv_tiles(plan, n_qt - 1, lq, lq, causal)
+    if causal:
+        assert all(blk[0][0] >= blk[-1][0] for blk in blocks)
+
+
+@pytest.mark.parametrize("b,lq,lk,h,causal", [(8, 1024, 1024, 10, True), (2, 200, 200, 3, True),
+                                              (4, 512, 512, 20, False), (2, 160, 64, 2, True),
+                                              (1, 64, 160, 2, True)])
+def test_schedule_table_is_what_the_kernel_reads(b, lq, lk, h, causal):
+    """The int32 table the entry point hands the kernel: entry ``[k, blk]``
+    is block blk's k-th (q tile, head, batch, KV tiles), and a q tile of -1
+    marks only the end of a block's list."""
+    plan = _flash_plan(torch.bfloat16, 64, lq, lk, causal, batch=b, heads=h)
+    blocks = _wg_schedule(plan, lq, lk, b, h, causal)
+    table = _schedule_table(blocks)
+    assert table.dtype == np.int32 and table.shape == (max(map(len, blocks)), plan.grid[0], 4)
+    for blk, work in enumerate(blocks):
+        assert [tuple(e) for e in table[:len(work), blk]] == list(work)
+        assert (table[len(work):, blk, 0] == -1).all()
+    assert (table[..., 0] >= -1).all() and (table[..., 0] < -(-lq // 128)).all()
+
+
+def _kv_tiles_from_mask(lq, lk, q0, bq, bn, causal):
+    """KV tiles a q tile must read, counted from the dense mask: the tile of
+    the last key that some valid row of [q0, q0 + bq) sees."""
+    qpos = np.arange(q0, min(q0 + bq, lq))[:, None]
+    kpos = np.arange(lk)[None, :]
+    visible = (kpos <= qpos) if causal else np.ones((len(qpos), lk), bool)
+    keys = np.nonzero(visible.any(0))[0]
+    return 0 if keys.size == 0 else int(keys[-1]) // bn + 1
+
+
+@pytest.mark.parametrize("lq,lk", [(80, 80), (200, 200), (1000, 1000), (1088, 1088),
+                                   (64, 160), (160, 64), (200, 1000), (1000, 200),
+                                   (1088, 80)])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kv_tile_counts_match_the_mask(lq, lk, causal):
+    """The wgmma schedule's KV-tile count of every q tile (the kernel
+    reads exactly that many) against a brute-force count from the mask."""
+    for d in (128, 64):
+        plan = _flash_plan(torch.bfloat16, d, lq, lk, causal, batch=2, heads=2)
+        seen = {(qt, hh, bb): w for blk in _wg_schedule(plan, lq, lk, 2, 2, causal)
+                for qt, hh, bb, w in blk}
+        for (qt, _, _), w in seen.items():
+            assert w == _kv_tiles_from_mask(lq, lk, qt * plan.bq, plan.bq, plan.bn,
+                                            causal), (d, qt)
