@@ -53,6 +53,23 @@ Phases, in order; any failure exits non-zero:
              layer per forward, at the bench width every time on the wgmma
              route.
 
+6. rng     — every RNG_CASES draw (threefry bits, uniform, bernoulli,
+             randint, permutation at n 1536 and 15360, cifar_augment on 64
+             fixed images) on the card, held bitwise against the same call
+             on the CPU and against jax 0.9.0's known answers
+             (tests/threefry_known_answers.json).
+7. north_star — ``fedml_tpu_torch.bench.build_north_star`` at its full cut
+             (ResNet-56 on the conv kernel, 10 clients x 24 steps x batch 64,
+             bf16), one warm-up round and one timed round; 19 conv launches
+             per forward, 18 of them on the tensor-core route.
+8. sim     — ``FedAvgSimulation`` over the kernel ResNet-56 (bf16,
+             cifar_augment, 4 of 8 clients sampled per round, dropout 0.25,
+             3 rounds) run three ways, deterministically: ``run()``; a run
+             that checkpoints every round, crashes before round 2 and
+             resumes; ``run_fused_sampled``.  All three must end with equal
+             variables, bit for bit.  Then ``experiments.run.main`` fedavg at
+             a small cut with augmentation on and ``--checkpoint_every 1``.
+
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
 before that the card's name and power limit; the last line is the device
@@ -66,6 +83,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -103,6 +121,73 @@ LSE_TOL = 1e-3
 # PyTorch (attention_as_kernel): at most this many bf16 spacings at the
 # largest logit (the card read one; PERF.md)
 BF16_LOGITS_ULPS = 2
+
+
+# threefry and augment draws held bitwise against the CPU and against the
+# known answers of jax 0.9.0 in tests/threefry_known_answers.json:
+# (name, draw, seed of PRNGKey, arguments)
+RNG_CASES = [
+    ("bits_s0_4x257", "random_bits", 0, {"shape": (4, 257)}),
+    ("bits_s42_3x5x7", "random_bits", 42, {"shape": (3, 5, 7)}),
+    ("uniform_s1_1000", "uniform", 1, {"shape": (1000,)}),
+    ("bernoulli_s2_p05", "bernoulli", 2, {"p": 0.5, "shape": (1000,)}),
+    ("bernoulli_s2_p09", "bernoulli", 2, {"p": 0.9, "shape": (1000,)}),
+    ("randint_s3_64x2_9", "randint", 3, {"shape": (64, 2), "lo": 0, "hi": 9}),
+    ("randint_s3_1000_33", "randint", 3, {"shape": (1000,), "lo": 0, "hi": 33}),
+    ("permutation_s4_1536", "permutation", 4, {"n": 1536}),      # one sort pass
+    ("permutation_s5_15360", "permutation", 5, {"n": 15360}),    # two sort passes
+    ("cifar_augment_s6_64", "cifar_augment", 6, {"images": 64}),
+]
+RNG_ANSWERS = "tests/threefry_known_answers.json"
+
+
+def augment_images(n: int):
+    """The fixed NHWC image tensor of the augment case (numpy's legacy
+    stream, stable across numpy versions)."""
+    import numpy as np
+
+    return np.random.RandomState(0).standard_normal((n, 32, 32, 3)).astype(np.float32)
+
+
+def rng_case(draw: str, seed: int, kw: dict, device):
+    """One RNG_CASES draw through the port on ``device``, as a numpy array
+    in JAX's dtype (uint32 bits, float32, bool, int32)."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.data.augment import cifar_augment
+
+    key = rng.PRNGKey(seed)
+    if draw == "random_bits":
+        return rng.random_bits(key, kw["shape"], device).cpu().numpy().astype(np.uint32)
+    if draw == "uniform":
+        out = rng.uniform(key, kw["shape"], device)
+    elif draw == "bernoulli":
+        out = rng.bernoulli(key, kw["p"], kw["shape"], device)
+    elif draw == "randint":
+        out = rng.randint(key, kw["shape"], kw["lo"], kw["hi"], device)
+    elif draw == "permutation":
+        out = rng.permutation(key, kw["n"], device).to(torch.int32)
+    elif draw == "cifar_augment":
+        x = torch.from_numpy(augment_images(kw["images"])).to(device)
+        out = cifar_augment()(key, x)
+    else:
+        raise ValueError(f"unknown draw {draw!r}")
+    return out.cpu().numpy()
+
+
+def answer_of(arr) -> dict:
+    """The known-answer record of a draw: dtype, shape, sha256 of its bytes
+    and its first 8 values."""
+    import hashlib
+
+    import numpy as np
+
+    arr = np.ascontiguousarray(arr)
+    return {"dtype": str(arr.dtype), "shape": list(arr.shape),
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+            "head": arr.ravel()[:8].tolist()}
 
 
 def fail(msg: str) -> None:
@@ -468,6 +553,7 @@ def phase_main(profile: bool):
     from fedml_tpu_torch.algorithms.fedavg import (
         FedAvgConfig, FedAvgSimulation, ServerState, make_multi_round_fn)
     from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
     from fedml_tpu_torch.core.types import device_resident_pack
     from fedml_tpu_torch.data.cifar import load_cifar10
     from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
@@ -482,7 +568,7 @@ def phase_main(profile: bool):
     (x, y, m, ns), _ = device_resident_pack(
         ds, ids, batch, steps_per_epoch=steps, seed=0, device=torch.device("cuda"))
     part = torch.ones(clients, device="cuda")
-    state = ServerState(bundle.init(torch.Generator().manual_seed(0)), (), 0, 0)
+    state = ServerState(bundle.init(torch.Generator().manual_seed(0)), (), 0, PRNGKey(0))
     before = {k: v.clone() for k, v in state.variables["params"].items()}
     fused = make_multi_round_fn(lu, rounds)
     state, _ = make_multi_round_fn(lu, 1)(state, x, y, m, ns, part, ids)  # warm-up
@@ -642,6 +728,223 @@ def phase_fedllm(profile: bool):
     return rec
 
 
+def phase_rng():
+    """RNG_CASES on the card against the CPU and the known answers."""
+    import os
+
+    import torch
+
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), RNG_ANSWERS)) as f:
+        answers = json.load(f)["answers"]
+    recs = []
+    for name, draw, seed, kw in RNG_CASES:
+        t0 = time.perf_counter()
+        got = rng_case(draw, seed, kw, torch.device("cuda"))
+        card_ms = 1e3 * (time.perf_counter() - t0)
+        cpu = rng_case(draw, seed, kw, "cpu")
+        same_cpu = got.dtype == cpu.dtype and got.tobytes() == cpu.tobytes()
+        same_jax = answer_of(got) == answers[name]
+        print(f"[rng] {name:22s} {draw:13s} {got.dtype} {tuple(got.shape)}: card == cpu "
+              f"{same_cpu}, == jax 0.9.0 known answer {same_jax} ({card_ms:.2f} ms incl. copy)")
+        if not (same_cpu and same_jax):
+            fail(f"rng case {name}: the card's draw is not the CPU's and jax's bits")
+        recs.append({"case": name, "draw": draw, "card_ms": card_ms})
+    return recs
+
+
+def phase_north_star(profile: bool):
+    """build_north_star at its own cut, one warm-up and one timed round."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.bench import build_north_star
+
+    clients, steps, batch = 10, 24, 64
+    t0 = time.perf_counter()
+    round_fn, state, args, samples = build_north_star(
+        clients=clients, steps=steps, batch=batch, rounds_per_call=1,
+        conv_variant="kernel")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    state, m = round_fn(state, *args)  # warm-up round
+    float(m["loss_sum"].sum())
+    warm_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    state, m = round_fn(state, *args)
+    loss = (m["loss_sum"] / m["count"]).cpu().numpy()
+    secs = time.perf_counter() - t0
+    seen = read_launches()
+    fwd = clients * steps
+    sps = samples / secs
+    rec = {"setup_s": setup_s, "warmup_round_s": warm_s, "round_s": secs,
+           "samples_per_s": sps, "step_ms": 1e3 * secs / fwd, "loss": loss.tolist(),
+           "launches": seen["conv3x3_mxu"], "tc_launches": seen["conv3x3_mxu_tc"],
+           "forwards": fwd}
+    print(f"[north_star] build_north_star(conv_variant='kernel'): {clients} clients x "
+          f"{steps} steps x batch {batch}, bf16: setup {setup_s:.2f} s, warm-up round "
+          f"{warm_s:.3f} s, timed round {secs:.3f} s = {sps:.1f} samples/s "
+          f"({rec['step_ms']:.2f} ms per step), loss {loss.tolist()}, conv3x3_mxu "
+          f"launches {seen['conv3x3_mxu']} ({seen['conv3x3_mxu_tc']} tensor-core) for "
+          f"{fwd} forwards")
+    if not np.all(np.isfinite(loss)):
+        fail(f"non-finite north-star loss {loss}")
+    if seen["conv3x3_mxu"] != 19 * fwd or seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * fwd:
+        fail(f"north star: conv launches {seen}, expected {19 * fwd} "
+             f"({TC_PER_FORWARD * fwd} tensor-core)")
+    if seen["flash_attention_fwd"]:
+        fail("the north-star path launched the flash kernel")
+    rec["profile"] = profile_round(round_fn, state, args) if profile else None
+    del state, args, round_fn
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_sim(step_ms: float):
+    """FedAvgSimulation with augmentation, sampled cohorts and dropout:
+    run(), crash + resume, and run_fused_sampled, bit for bit.  ``step_ms``
+    is the north star's step time, which the augment and threefry costs
+    per client-epoch are printed beside."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import (
+        FedAvgConfig, FedAvgSimulation, InjectedCrash)
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.core.checkpoint import CheckpointManager
+    from fedml_tpu_torch.data.augment import cifar_augment
+    from fedml_tpu_torch.data.cifar import load_cifar10
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.experiments.registry import shrink_dataset
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ds = shrink_dataset(load_cifar10(num_clients=8, partition="hetero",
+                                     partition_alpha=0.5, seed=0), 128, 256)
+    cfg = FedAvgConfig(num_clients=8, clients_per_round=4, comm_rounds=3, epochs=1,
+                       batch_size=64, lr=0.001, momentum=0.9, weight_decay=1e-3,
+                       frequency_of_the_test=1, seed=0, compute_dtype="bf16",
+                       drop_prob=0.25)
+
+    def sim():
+        return FedAvgSimulation(resnet56_tpu(conv_variant="kernel"), ds, cfg,
+                                augment_fn=cifar_augment())
+
+    a = sim()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = a.run()
+    run_s = time.perf_counter() - t0
+    seen = read_launches()
+    train_fwd = cfg.comm_rounds * cfg.clients_per_round * a.steps_per_epoch
+    eval_fwd = cfg.comm_rounds * math.ceil(len(ds.test_y) / 64)
+    with tempfile.TemporaryDirectory() as ck:
+        b = sim()
+        b.attach_checkpointing(CheckpointManager(ck), every=1)
+        b.crash_at_round = 2
+        try:
+            b.run()
+            fail("the scheduled crash did not happen")
+        except InjectedCrash as crash:
+            crashed_at = crash.round_idx
+        saved = sorted(os.listdir(ck))
+        b = sim()
+        b.attach_checkpointing(CheckpointManager(ck), every=1)
+        resumed_from = b.resume()
+        b.run(cfg.comm_rounds - resumed_from)
+    c = sim()
+    c.run_fused_sampled(rounds_per_call=2)
+
+    def max_diff(x, y):
+        return max((x.state.variables[col][k].float() - y.state.variables[col][k].float())
+                   .abs().max().item()
+                   for col in x.state.variables for k in x.state.variables[col])
+
+    diff_resume, diff_fused = max_diff(a, b), max_diff(a, c)
+    participants = [r["participants"] for r in hist]
+    # per client-epoch at the north star's cut (24 steps x 64 images): the
+    # epoch's augmentation, and its threefry draws (the shuffle permutation,
+    # the augment key and 24 step keys)
+    n = 24 * 64
+    x = torch.randn(n, 32, 32, 3, generator=torch.Generator().manual_seed(0)).cuda()
+    aug = cifar_augment()
+    key = rng.PRNGKey(0)
+
+    def host_ms(fn, reps=20):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t) / reps
+
+    def draws():
+        ek = rng.fold_in(key, 0)
+        rng.permutation(rng.fold_in(ek, 0), n, x.device)
+        rng.fold_in(ek, n + 1)
+        for i in range(24):
+            rng.fold_in(ek, i + 1)
+
+    rec = {"run_s": run_s, "participants": participants,
+           "final_test_acc": hist[-1]["test_acc"], "crashed_at": crashed_at,
+           "checkpoints_at_crash": saved, "resumed_from": resumed_from,
+           "max_abs_diff_resume": diff_resume, "max_abs_diff_fused_sampled": diff_fused,
+           "launches": seen["conv3x3_mxu"], "tc_launches": seen["conv3x3_mxu_tc"],
+           "augment_ms_per_client_epoch": host_ms(lambda: aug(key, x)),
+           "threefry_ms_per_client_epoch": host_ms(draws)}
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    print(f"[sim] FedAvgSimulation resnet56_tpu bf16 + cifar_augment, 8 clients (4 per "
+          f"round, drop_prob 0.25), {a.steps_per_epoch} steps per client, 3 rounds: run() "
+          f"{run_s:.3f} s, participants {participants}, test_acc {hist[-1]['test_acc']:.4f}; "
+          f"conv3x3_mxu launches {seen['conv3x3_mxu']} ({seen['conv3x3_mxu_tc']} "
+          f"tensor-core) for {train_fwd} train + {eval_fwd} eval forwards")
+    print(f"[sim] crash before round {crashed_at} with {saved} on disk, resume() from "
+          f"round {resumed_from}: max |variable - run()| {diff_resume:.3g}; "
+          f"run_fused_sampled: max |variable - run()| {diff_fused:.3g}")
+    epoch_ms = 24 * step_ms
+    print(f"[sim] per client-epoch of 24 x 64 images (host clock, synced): augment "
+          f"{rec['augment_ms_per_client_epoch']:.3f} ms, threefry draws "
+          f"{rec['threefry_ms_per_client_epoch']:.3f} ms, beside 24 north-star steps "
+          f"of {step_ms:.2f} ms = {epoch_ms:.1f} ms (augment "
+          f"{100 * rec['augment_ms_per_client_epoch'] / epoch_ms:.2f}%, threefry "
+          f"{100 * rec['threefry_ms_per_client_epoch'] / epoch_ms:.2f}%)")
+    if seen["conv3x3_mxu"] != 19 * (train_fwd + eval_fwd) or \
+            seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * train_fwd:
+        fail(f"sim: conv launches {seen}, expected {19 * (train_fwd + eval_fwd)} "
+             f"({TC_PER_FORWARD * train_fwd} tensor-core)")
+    if min(participants) >= cfg.clients_per_round:
+        fail("sim: dropout took no client out; the phase does not test it")
+    if not (crashed_at == 2 and resumed_from == 2):
+        fail(f"sim: crashed at {crashed_at}, resumed from {resumed_from}")
+    if diff_resume != 0.0 or diff_fused != 0.0:
+        fail("sim: crash + resume or run_fused_sampled is not bit-identical to run()")
+
+    # the experiment entry point with augmentation on and checkpointing
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_launches()
+        t0 = time.perf_counter()
+        out = run.main(["--algorithm", "fedavg", "--dataset", "cifar10", "--ci", "1",
+                        "--checkpoint_every", "1", "--checkpoint_dir",
+                        os.path.join(tmp, "ck"), "--run_dir", os.path.join(tmp, "run")])
+        secs = time.perf_counter() - t0
+        ckpts = sorted(os.listdir(os.path.join(tmp, "ck")))
+    final = out["final"]
+    print(f"[sim] experiments.run.main fedavg cifar10 --ci 1 --checkpoint_every 1 "
+          f"(augmentation on): {len(out['history'])} rounds {secs:.3f} s, train_loss "
+          f"{final['train_loss']:.4f} test_acc {final['test_acc']:.4f}, checkpoints {ckpts}")
+    if not (math.isfinite(final["train_loss"]) and ckpts == ["ckpt_1.npz", "ckpt_2.npz"]):
+        fail(f"run.main fedavg: {final}, checkpoints {ckpts}")
+    rec.update(run_main_s=secs, run_main_checkpoints=ckpts)
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write every per-case number here as JSON")
@@ -665,6 +968,9 @@ def main() -> int:
     phase_flash_check()
     main_rec = phase_main(args.profile)
     fedllm_rec = phase_fedllm(args.profile)
+    rng_rec = phase_rng()
+    north_rec = phase_north_star(args.profile)
+    sim_rec = phase_sim(north_rec["step_ms"])
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -678,7 +984,7 @@ def main() -> int:
         "route": "cuda",
         "source": "fedml_tpu_torch/ops/csrc/conv_mxu.cu",
         "replaces": "fedml_tpu/ops/conv_mxu.py:72",
-        "launches": main_rec["launches"],
+        "launches": main_rec["launches"] + north_rec["launches"] + sim_rec["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -712,7 +1018,8 @@ def main() -> int:
         with open(args.out, "w") as f:
             json.dump({"gpu": smi, "build_s": build_s, "cases": cases,
                        "flash_cases": flash_cases, "main": main_rec,
-                       "fedllm": fedllm_rec, "kernels": kernels}, f, indent=1)
+                       "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
+                       "sim": sim_rec, "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

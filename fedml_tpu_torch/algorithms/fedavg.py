@@ -6,11 +6,16 @@ folded into an fp32 sample-weighted sum of EVERY variable, ``batch_stats``
 included, as soon as it finishes; then ``agg = num / den``.  Client
 subsampling and dropout are a participation mask folded into the
 weights.  A round whose weights sum to zero (every client dropped) is a
-no-op, not a division.
+no-op, not a division.  With an ``aggregate_transform`` (robust
+aggregation's hook) the clients' variables are stacked first, transformed
+together, then folded in the same order.
 
-Randomness: every stream derives from ``fold_in(state.seed, round, ...)``
-(``core/rng.py``), so R rounds of ``make_multi_round_fn`` equal R calls
-of the round function.  The streams are not JAX's bits.
+Randomness is the JAX package's, bit for bit (``core/rng.py``): the round
+key ``k_round = fold_in(state.key, round)``, the training stream
+``fold_in(k_round, 0)`` with one key per client slot, the aggregation
+stream ``fold_in(k_round, 1)``.  So R rounds of a fused driver equal R
+calls of the round function, and a checkpoint of the state resumes
+bit-identically.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.client import (
     LocalUpdateFn,
@@ -31,7 +37,6 @@ from fedml_tpu_torch.core.client import (
 )
 from fedml_tpu_torch.core.losses import LossFn, masked_softmax_ce
 from fedml_tpu_torch.core.metrics import MetricsLogger
-from fedml_tpu_torch.core.rng import fold_in
 from fedml_tpu_torch.core.sampling import (
     eligible_participation_mask,
     host_sample_ids,
@@ -44,19 +49,33 @@ from fedml_tpu_torch.core.types import (
     device_resident_pack,
 )
 from fedml_tpu_torch.models.base import ModelBundle, Variables
+from fedml_tpu_torch.obs.torch_hooks import instrument_signatures, record_device_memory
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # (old_variables, aggregated_variables, opt_state) -> (new_variables, opt_state)
 ServerUpdateFn = Callable[[Variables, Variables, Any], Tuple[Variables, Any]]
 
 _TRAIN_STREAM = 0
+_AGG_STREAM = 1
 
 
 class ServerState(NamedTuple):
     variables: Variables
     opt_state: Any
     round_idx: int
-    seed: int
+    key: rnglib.Key
+    # error-feedback residuals of update compression: () until that is ported
+    residuals: Any = ()
+
+
+class InjectedCrash(SystemExit):
+    """The crash ``crash_at_round`` schedules: exits the process with 137,
+    as the JAX package's ``os._exit(137)`` does, unless a caller catches
+    this type.  No checkpoint is written on the way out."""
+
+    def __init__(self, round_idx: int):
+        super().__init__(137)
+        self.round_idx = round_idx
 
 
 def default_server_update(old, agg, opt_state):
@@ -83,6 +102,7 @@ def make_round_fn(
     local_update: LocalUpdateFn,
     *,
     server_update: ServerUpdateFn = default_server_update,
+    aggregate_transform: Optional[Callable] = None,
     device: DeviceLike = None,
     codec=None,
     axis_name: Optional[str] = None,
@@ -96,6 +116,11 @@ def make_round_fn(
     key each client's random stream).  Returns ``(new_state, metrics)``
     with participation-weighted sums of the clients' metrics plus
     ``participants``.
+
+    ``aggregate_transform(old_variables, stacked_client_variables,
+    weights, keys) -> stacked_client_variables`` runs on the clients'
+    variables stacked on a leading K axis, with one aggregation-stream key
+    per client (``keys`` [K, 2]), before the weighted sum.
 
     ``codec``, ``axis_name`` and ``aggregate_impl`` (lossy uplink, the
     multi-device mesh, pluggable aggregation) are not ported yet."""
@@ -111,16 +136,30 @@ def make_round_fn(
         x, y, mask, num_samples, participation = (
             t.to(dev) for t in (x, y, mask, num_samples, participation))
         weights = participation * num_samples  # sample-weighted, masked
-        ids = torch.as_tensor(slot_ids).tolist()
+        ids = [int(i) for i in np.asarray(torch.as_tensor(slot_ids).cpu())]
+        k_round = rnglib.fold_in(state.key, state.round_idx)
+        k_train = rnglib.fold_in(k_round, _TRAIN_STREAM)
         num = None
+        clients = []
         train_metrics: dict = {}
         for k, slot in enumerate(ids):
-            seed = fold_in(state.seed, state.round_idx, _TRAIN_STREAM, slot)
-            cvars, cm = local_update(state.variables, x[k], y[k], mask[k], seed)
-            num = treelib.tree_fold_weighted(num, cvars, weights[k])
+            cvars, cm = local_update(state.variables, x[k], y[k], mask[k],
+                                     rnglib.fold_in(k_train, slot))
+            if aggregate_transform is None:
+                num = treelib.tree_fold_weighted(num, cvars, weights[k])
+            else:
+                clients.append(cvars)
             for name, v in cm.items():
                 w = participation[k] * v
                 train_metrics[name] = train_metrics[name] + w if name in train_metrics else w
+        if aggregate_transform is not None:
+            k_agg = rnglib.fold_in(k_round, _AGG_STREAM)
+            keys = np.stack([rnglib.fold_in(k_agg, slot) for slot in ids])
+            stacked = treelib.tree_map(lambda *leaves: torch.stack(leaves), *clients)
+            stacked = aggregate_transform(state.variables, stacked, weights, keys)
+            for k in range(len(ids)):
+                num = treelib.tree_fold_weighted(
+                    num, treelib.tree_map(lambda leaf: leaf[k], stacked), weights[k])
         den = weights.sum()
         # zero-participation guard: with den == 0 the weighted average is
         # undefined, so the round leaves the model untouched
@@ -130,10 +169,26 @@ def make_round_fn(
             num, state.variables)
         new_vars, new_opt = server_update(state.variables, agg, state.opt_state)
         train_metrics["participants"] = participation.sum()
-        return ServerState(new_vars, new_opt, state.round_idx + 1,
-                           state.seed), train_metrics
+        return ServerState(new_vars, new_opt, state.round_idx + 1, state.key,
+                           state.residuals), train_metrics
 
     return round_fn
+
+
+def _resolve_round_fn(local_update, round_fn, round_kw, device):
+    """A pre-built round kernel (kernel-shaping kwargs must then be baked
+    into it), or a new ``make_round_fn`` kernel."""
+    if round_fn is None:
+        return make_round_fn(local_update, device=device, **round_kw)
+    if round_kw:
+        raise ValueError(
+            "round_fn is a pre-built kernel; kernel-shaping kwargs "
+            f"{sorted(round_kw)} must be baked into it")
+    return round_fn
+
+
+def _stack_metrics(rows):
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
 
 def make_multi_round_fn(
@@ -149,22 +204,14 @@ def make_multi_round_fn(
     """Run ``rounds_per_call`` rounds over a resident cohort in one call,
     with no host read-back between rounds.  ``clients_per_round``
     re-draws a uniform participation mask among the eligible clients each
-    round and ``drop_prob`` composes ``inject_dropout`` on top, both from
-    (state.seed, round).  Returns ``(final_state, metrics)`` with each
-    metric stacked ``[rounds_per_call]``.  ``round_fn`` is a pre-built
-    round kernel (kernel-shaping kwargs must then be baked into it)."""
+    round and ``drop_prob`` composes ``inject_dropout`` on top, both under
+    ``(state.key, round)``.  Returns ``(final_state, metrics)`` with each
+    metric stacked ``[rounds_per_call]``."""
     if clients_per_round is not None and clients_per_round < 1:
         raise ValueError(
             f"clients_per_round must be >= 1, got {clients_per_round}")
     dev = resolve_device(device)
-    if round_fn is not None:
-        if round_kw:
-            raise ValueError(
-                "round_fn is a pre-built kernel; kernel-shaping kwargs "
-                f"{sorted(round_kw)} must be baked into it")
-        rf = round_fn
-    else:
-        rf = make_round_fn(local_update, device=dev, **round_kw)
+    rf = _resolve_round_fn(local_update, round_fn, round_kw, dev)
 
     def multi_round_fn(state: ServerState, x, y, mask, num_samples,
                        participation, slot_ids):
@@ -175,14 +222,48 @@ def make_multi_round_fn(
             part = participation
             if clients_per_round is not None and clients_per_round < num_clients:
                 part = eligible_participation_mask(
-                    state.seed, state.round_idx, participation, clients_per_round)
+                    state.key, state.round_idx, participation, clients_per_round)
             if drop_prob:
-                part = inject_dropout(state.seed, state.round_idx, part, drop_prob)
+                part = inject_dropout(state.key, state.round_idx, part, drop_prob)
             state, m = rf(state, x, y, mask, num_samples, part, slot_ids)
             rows.append(m)
-        return state, {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+        return state, _stack_metrics(rows)
 
     return multi_round_fn
+
+
+def make_scheduled_multi_round_fn(
+    local_update: Optional[LocalUpdateFn],
+    *,
+    drop_prob: float = 0.0,
+    drop_seed: int = 0,
+    round_fn: Optional[Callable] = None,
+    device: DeviceLike = None,
+    **round_kw,
+):
+    """Run R rounds whose cohorts differ per round in one call: every data
+    arg carries a leading ``[R]`` round axis, one cohort block per round
+    (the host pre-samples and packs them).  ``drop_prob`` reproduces
+    ``FedAvgSimulation.run_round``'s draw, ``inject_dropout(
+    PRNGKey(drop_seed), round, ...)``, so the rounds equal the dispatch
+    loop's.  Returns ``(final_state, metrics)`` stacked ``[R]``."""
+    dev = resolve_device(device)
+    rf = _resolve_round_fn(local_update, round_fn, round_kw, dev)
+    drop_key = rnglib.PRNGKey(drop_seed)
+
+    def scheduled_fn(state: ServerState, x, y, mask, num_samples,
+                     participation, slot_ids):
+        rows = []
+        for r in range(x.shape[0]):
+            part = participation[r].to(dev)
+            if drop_prob:
+                part = inject_dropout(drop_key, state.round_idx, part, drop_prob)
+            state, m = rf(state, x[r], y[r], mask[r], num_samples[r], part,
+                          slot_ids[r])
+            rows.append(m)
+        return state, _stack_metrics(rows)
+
+    return scheduled_fn
 
 
 @dataclasses.dataclass
@@ -212,7 +293,11 @@ class FedAvgSimulation:
 
     Per round: seeded uniform sampling of K clients on the host, their
     shards packed to fixed shape and kept on the device, one round
-    function call, periodic evaluation."""
+    function call, periodic evaluation.  ``augment_fn`` is the per-epoch
+    augmentation of the local update; ``aggregate_transform`` the round's
+    hook (``make_round_fn``); ``server_opt_init(variables)`` the initial
+    server optimizer state ``server_update`` reads; ``client_lr`` a float
+    or schedule (count -> lr) in place of ``config.lr``."""
 
     def __init__(
         self,
@@ -222,6 +307,10 @@ class FedAvgSimulation:
         *,
         loss_fn: LossFn = masked_softmax_ce,
         server_update: ServerUpdateFn = default_server_update,
+        server_opt_init: Optional[Callable[[Variables], Any]] = None,
+        aggregate_transform: Optional[Callable] = None,
+        augment_fn: Optional[Callable] = None,
+        client_lr: Optional[Any] = None,
         metrics: Optional[MetricsLogger] = None,
         device: DeviceLike = None,
     ):
@@ -235,29 +324,83 @@ class FedAvgSimulation:
         self.cfg = config
         self.metrics = metrics or MetricsLogger()
         optimizer = make_client_optimizer(
-            config.client_optimizer, config.lr, momentum=config.momentum,
-            weight_decay=config.weight_decay, grad_clip=config.grad_clip,
+            config.client_optimizer, config.lr if client_lr is None else client_lr,
+            momentum=config.momentum, weight_decay=config.weight_decay,
+            grad_clip=config.grad_clip,
         )
         self.local_update = make_local_update(
             bundle, optimizer, config.epochs, loss_fn,
-            prox_mu=config.prox_mu,
+            prox_mu=config.prox_mu, augment_fn=augment_fn,
             compute_dtype=resolve_compute_dtype(config.compute_dtype),
         )
-        self.round_fn = make_round_fn(self.local_update,
-                                      server_update=server_update,
-                                      device=self.device)
-        self.evaluator = make_evaluator(bundle, loss_fn)
+        # new-signature tracking (obs layer): a cohort geometry that varies
+        # per round shows as calls.new_signature{fn=round_fn} climbing
+        tel = self.metrics.telemetry
+        self.round_fn = instrument_signatures(
+            make_round_fn(self.local_update, server_update=server_update,
+                          aggregate_transform=aggregate_transform,
+                          device=self.device),
+            "round_fn", telemetry=tel)
+        self.evaluator = instrument_signatures(make_evaluator(bundle, loss_fn),
+                                               "evaluator", telemetry=tel)
         variables = bundle.init(torch.Generator().manual_seed(config.seed))
-        self.state = ServerState(variables, (), 0, config.seed)
+        opt_state = server_opt_init(variables) if server_opt_init else ()
+        self.state = ServerState(variables, opt_state, 0,
+                                 rnglib.PRNGKey(config.seed))
         self.steps_per_epoch = cohort_steps_per_epoch(dataset, config.batch_size)
         self._test_pack = None  # (x, y, mask) on device, built at first eval
         self.history = []
         self._pack_cache: Optional[tuple] = None
+        # checkpoint/resume (attach_checkpointing) and crash injection
+        self._ckpt_mgr = None
+        self._ckpt_every = 0
+        self._ckpt_last: Optional[int] = None
+        self.crash_at_round: Optional[int] = None
         # model payload per participant per direction (fp32 wire bytes)
         self._model_nbytes = sum(
             t.numel() * t.element_size()
             for t in treelib.tree_leaves(variables))
 
+    # -- checkpoint/resume --------------------------------------------------
+    def attach_checkpointing(self, manager, every: int = 1) -> None:
+        """Save the full round state (variables, server optimizer state,
+        round index, key) every ``every`` completed rounds and at the end
+        of each run call.  Every random stream derives from ``(state.key,
+        state.round_idx)``, so a restored state continues bit-identically."""
+        self._ckpt_mgr = manager
+        self._ckpt_every = max(1, int(every))
+
+    def resume(self) -> int:
+        """Restore the latest readable checkpoint into ``self.state`` (onto
+        this simulation's device); returns the number of completed rounds
+        (0 = nothing to restore)."""
+        if self._ckpt_mgr is None or self._ckpt_mgr.latest_step() is None:
+            return 0
+        self.state = self._ckpt_mgr.restore(like=self.state)
+        done = int(self.state.round_idx)
+        self._ckpt_last = done
+        self.metrics.telemetry.event("resume", round=done)
+        return done
+
+    def _maybe_checkpoint(self, final: bool = False) -> None:
+        if self._ckpt_mgr is None:
+            return
+        step = int(self.state.round_idx)
+        if step == self._ckpt_last:  # this step is already on disk
+            return
+        if final or step % self._ckpt_every == 0:
+            with self.metrics.span("checkpoint"):
+                self._ckpt_mgr.save(step, self.state)
+            self._ckpt_last = step
+
+    def _crash_if_scheduled(self) -> None:
+        """Fault injection: raise ``InjectedCrash`` right before the
+        scheduled round trains (the crash half of crash-then-resume)."""
+        if (self.crash_at_round is not None
+                and int(self.state.round_idx) == self.crash_at_round):
+            raise InjectedCrash(self.crash_at_round)
+
+    # -- rounds ---------------------------------------------------------------
     def _count_degraded(self, row: dict) -> None:
         """A round with an empty realized cohort left the model untouched."""
         if row.get("participants", 1.0) <= 0:
@@ -281,6 +424,12 @@ class FedAvgSimulation:
         self._pack_cache = (key, args)
         return args
 
+    def _cohort_block(self, ids, round_idx: int) -> tuple:
+        """Subclass hook: the (x, y, mask, num_samples) device block of
+        this round's cohort."""
+        del round_idx
+        return self._device_pack(ids)
+
     def _record_sim_comm(self, cohort: int, rounds: int = 1,
                          uploads: Optional[int] = None) -> None:
         """The federation traffic a real transport would move for the
@@ -296,16 +445,25 @@ class FedAvgSimulation:
         t.inc("comm.recv_bytes", self._model_nbytes * up,
               msg_type="C2S_SEND_MODEL")
 
+    @staticmethod
+    def _train_row(metrics: dict, round_idx: int) -> dict:
+        out = dict(metrics, round=round_idx)
+        if out.get("count", 0) > 0:
+            out["train_acc"] = out["correct"] / out["count"]
+            out["train_loss"] = out["loss_sum"] / out["count"]
+        return out
+
     def run_round(self) -> dict:
-        round_idx = self.state.round_idx
+        round_idx = int(self.state.round_idx)
         with self.metrics.span("sample"):
             ids = self._sample_ids(round_idx)
         with self.metrics.span("pack"):
-            x, y, mask, num_samples = self._device_pack(ids)
+            x, y, mask, num_samples = self._cohort_block(ids, round_idx)
         participation = torch.ones(len(ids), device=self.device)
         if self.cfg.drop_prob > 0.0:
             participation = inject_dropout(
-                self.cfg.seed, round_idx, participation, self.cfg.drop_prob)
+                rnglib.PRNGKey(self.cfg.seed), round_idx, participation,
+                self.cfg.drop_prob)
         with self.metrics.span("round"):
             self.state, metrics = self.round_fn(
                 self.state, x, y, mask, num_samples, participation, ids)
@@ -313,11 +471,7 @@ class FedAvgSimulation:
             # measures the round, not the enqueue
             out = {k: float(v) for k, v in metrics.items()}
         self._record_sim_comm(len(ids), uploads=int(round(out["participants"])))
-        out["round"] = round_idx
-        if out.get("count", 0) > 0:
-            out["train_acc"] = out["correct"] / out["count"]
-            out["train_loss"] = out["loss_sum"] / out["count"]
-        return out
+        return self._train_row(out, round_idx)
 
     def evaluate_global(self) -> dict:
         if self._test_pack is None:
@@ -332,17 +486,23 @@ class FedAvgSimulation:
     def run(self, rounds: Optional[int] = None, log_fn=None) -> list:
         rounds = rounds if rounds is not None else self.cfg.comm_rounds
         for i in range(rounds):
+            self._crash_if_scheduled()
             metrics = self.run_round()
             self._count_degraded(metrics)
             r = metrics["round"]
+            # the final eval keys on this call's last round, so run(rounds=N)
+            # and resumed runs end with test metrics too
             if r % self.cfg.frequency_of_the_test == 0 or i == rounds - 1:
                 with self.metrics.span("eval"):
                     metrics.update(self.evaluate_global())
+                record_device_memory(self.metrics.telemetry)
             metrics.update(self.metrics.pop_spans())
             self.metrics.log(metrics, step=r)
             self.history.append(metrics)
             if log_fn:
                 log_fn(metrics)
+            self._maybe_checkpoint()
+        self._maybe_checkpoint(final=True)
         return self.history
 
     def run_fused(self, rounds: Optional[int] = None, log_fn=None,
@@ -359,10 +519,59 @@ class FedAvgSimulation:
                 f"num_clients={cfg.num_clients}); use run()")
         rounds = rounds if rounds is not None else cfg.comm_rounds
         ids = np.arange(cfg.num_clients)
-        x, y, mask, num_samples = self._device_pack(ids)
+        x, y, mask, num_samples = self._cohort_block(ids, 0)
         participation = torch.ones(len(ids), device=self.device)
-        freq = cfg.frequency_of_the_test
-        base0 = self.state.round_idx
+
+        def run_chunk(base, n, chunk_ids):
+            del base, chunk_ids
+            fused = make_multi_round_fn(None, n, drop_prob=cfg.drop_prob,
+                                        round_fn=self.round_fn, device=self.device)
+            with self.metrics.span("round"):
+                self.state, stacked = fused(self.state, x, y, mask,
+                                            num_samples, participation, ids)
+            return stacked
+
+        return self._drive_chunks(rounds, rounds_per_call, run_chunk,
+                                  ids_for_round=lambda r: ids, log_fn=log_fn)
+
+    def run_fused_sampled(self, rounds: Optional[int] = None, log_fn=None,
+                          rounds_per_call: int = 25) -> list:
+        """Sampled-cohort driver: the host pre-draws the next chunk's
+        cohorts from the same ``host_sample_ids`` stream ``run()`` uses,
+        stacks their blocks ``[R, K, ...]``, and one
+        ``make_scheduled_multi_round_fn`` call runs the chunk.  Equal to
+        ``run()`` round for round, dropout included."""
+        cfg = self.cfg
+        rounds = rounds if rounds is not None else cfg.comm_rounds
+        fused = instrument_signatures(make_scheduled_multi_round_fn(
+            None, drop_prob=cfg.drop_prob, drop_seed=cfg.seed,
+            round_fn=self.round_fn, device=self.device),
+            "scheduled_round_fn", telemetry=self.metrics.telemetry)
+
+        def run_chunk(base, n, chunk_ids):
+            with self.metrics.span("pack"):
+                blocks = [self._cohort_block(ids, base + i)
+                          for i, ids in enumerate(chunk_ids)]
+                stacked_args = tuple(torch.stack([b[j] for b in blocks])
+                                     for j in range(4))
+            part = torch.ones((n, len(chunk_ids[0])), device=self.device)
+            with self.metrics.span("round"):
+                self.state, stacked = fused(self.state, *stacked_args, part,
+                                            np.stack(chunk_ids))
+            return stacked
+
+        return self._drive_chunks(rounds, rounds_per_call, run_chunk,
+                                  ids_for_round=self._sample_ids, log_fn=log_fn)
+
+    def _drive_chunks(self, rounds, rounds_per_call, run_chunk, *,
+                      ids_for_round, log_fn):
+        """The fused drivers' chunking: chunks end exactly on ``run()``'s
+        eval rounds (``r % freq == 0``, plus the last round) so the history
+        matches the dispatch loop row for row; ``rounds_per_call`` caps a
+        chunk (0/None = uncapped).  Chunk boundaries are the checkpoint
+        cadence (no mid-chunk state exists on the host)."""
+        freq = self.cfg.frequency_of_the_test
+        base0 = int(self.state.round_idx)
         eval_rounds = sorted(
             {r for r in range(base0, base0 + rounds) if r % freq == 0}
             | {base0 + rounds - 1})
@@ -372,26 +581,25 @@ class FedAvgSimulation:
             n = next(r for r in eval_rounds if r >= base) - base + 1
             if rounds_per_call:
                 n = min(n, rounds_per_call)
-            fused = make_multi_round_fn(None, n, drop_prob=cfg.drop_prob,
-                                        round_fn=self.round_fn, device=self.device)
+            with self.metrics.span("sample"):
+                chunk_ids = [ids_for_round(base + i) for i in range(n)]
+            # run_chunk spans its own round (the sampled driver packs first);
+            # the float() read-backs wait for the chunk's device work
+            stacked = run_chunk(base, n, chunk_ids)
             with self.metrics.span("round"):
-                self.state, stacked = fused(self.state, x, y, mask,
-                                            num_samples, participation, ids)
                 rows = []
                 for i in range(n):
-                    out = {k: float(v[i]) for k, v in stacked.items()}
-                    out["round"] = base + i
-                    if out.get("count", 0) > 0:
-                        out["train_acc"] = out["correct"] / out["count"]
-                        out["train_loss"] = out["loss_sum"] / out["count"]
+                    out = self._train_row(
+                        {k: float(v[i]) for k, v in stacked.items()}, base + i)
                     self._count_degraded(out)
                     rows.append(out)
             self._record_sim_comm(
-                len(ids), rounds=n,
+                len(chunk_ids[0]), rounds=n,
                 uploads=int(sum(r["participants"] for r in rows)))
             if base + n - 1 in eval_rounds:
                 with self.metrics.span("eval"):
                     rows[-1].update(self.evaluate_global())
+                record_device_memory(self.metrics.telemetry)
             # chunk-level spans ride the chunk's last row
             rows[-1].update(self.metrics.pop_spans())
             self.history.extend(rows)
@@ -400,4 +608,6 @@ class FedAvgSimulation:
                 if log_fn:
                     log_fn(r)
             done += n
+            self._maybe_checkpoint()
+        self._maybe_checkpoint(final=True)
         return self.history

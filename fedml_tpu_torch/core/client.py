@@ -4,8 +4,11 @@ One client's local update is a Python loop over epochs × fixed-shape
 batches on the device.  Semantics follow the JAX package exactly:
 
 - the client optimizer is built fresh every round (state from ``init``);
-- a per-epoch reshuffle of the local pack (a ``torch.Generator`` drawn
-  from (client seed, epoch): reproducible, but not JAX's bits);
+- the JAX package's threefry streams (``core/rng.py``), bit for bit:
+  epoch key ``ek = fold_in(key, epoch)``, the epoch's reshuffle
+  ``permutation(fold_in(ek, 0), n)``, the epoch's augmentation key
+  ``fold_in(ek, n + 1)`` (one ``augment_fn`` call over the whole shuffled
+  epoch tensor) and step ``i``'s model key ``fold_in(ek, i + 1)``;
 - batches that are entirely padding leave the *params* unchanged, while
   the optimizer state (momentum picks up the ``wd·p`` term) and the
   BatchNorm statistics still advance, as in the JAX scan;
@@ -27,9 +30,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
+from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.losses import LossFn, masked_softmax_ce
-from fedml_tpu_torch.core.rng import generator
 from fedml_tpu_torch.models.base import ModelBundle
 
 Params = Dict[str, torch.Tensor]
@@ -62,6 +65,18 @@ def _trace(decay: float) -> Transform:
 def _scale(step: float) -> Transform:
     return (lambda params: (),
             lambda g, state, params: ({k: v * step for k, v in g.items()}, state))
+
+
+def _scale_by_learning_rate(lr) -> Transform:
+    """optax.scale_by_learning_rate: ``-lr``, or for a schedule (count ->
+    lr) ``-lr(count)`` with the count of updates so far (from 0)."""
+    if not callable(lr):
+        return _scale(-lr)
+
+    def update(g, count, params):
+        step = -lr(count)
+        return {k: v * step for k, v in g.items()}, count + 1
+    return (lambda params: 0, update)
 
 
 def _scale_by_amsgrad_torch(b1: float = 0.9, b2: float = 0.999,
@@ -110,9 +125,10 @@ def make_client_optimizer(
     grad_clip: Optional[float] = None,
 ) -> Optimizer:
     """The reference's client optimizers: SGD (+momentum/wd) or amsgrad
-    Adam.  ``weight_decay=None`` means the optimizer's default (0 for
-    sgd, the reference's 1e-4 for adam); both decays are COUPLED L2
-    (``wd·p`` added to the gradient before the update)."""
+    Adam; ``lr`` is a float or a schedule (count -> lr).
+    ``weight_decay=None`` means the optimizer's default (0 for sgd, the
+    reference's 1e-4 for adam); both decays are COUPLED L2 (``wd·p``
+    added to the gradient before the update)."""
     chain: List[Transform] = []
     if grad_clip is not None:
         chain.append(_clip_by_global_norm(grad_clip))
@@ -121,13 +137,13 @@ def make_client_optimizer(
             chain.append(_add_decayed_weights(weight_decay))
         if momentum:
             chain.append(_trace(momentum))
-        chain.append(_scale(-lr))
+        chain.append(_scale_by_learning_rate(lr))
     elif name == "adam":
         wd = 1e-4 if weight_decay is None else weight_decay
         if wd:
             chain.append(_add_decayed_weights(wd))
         chain.append(_scale_by_amsgrad_torch())
-        chain.append(_scale(-lr))
+        chain.append(_scale_by_learning_rate(lr))
     else:
         raise ValueError(f"unknown client optimizer: {name}")
     return Optimizer(chain)
@@ -137,11 +153,11 @@ def make_client_optimizer(
 class LocalUpdateFn:
     """Callable local update plus metadata the algorithms need."""
 
-    fn: Callable  # (variables, x, y, mask, seed) -> (variables, metrics)
+    fn: Callable  # (variables, x, y, mask, key) -> (variables, metrics)
     epochs: int
 
-    def __call__(self, variables, x, y, mask, seed):
-        return self.fn(variables, x, y, mask, seed)
+    def __call__(self, variables, x, y, mask, key):
+        return self.fn(variables, x, y, mask, key)
 
 
 def make_local_update(
@@ -152,32 +168,34 @@ def make_local_update(
     *,
     prox_mu: float = 0.0,
     shuffle: bool = True,
+    augment_fn: Optional[Callable] = None,
     compute_dtype: Optional[torch.dtype] = None,
 ) -> LocalUpdateFn:
     """Build the local-update function for one client.
 
     Shapes (one client): x [steps, B, ...], y [steps, B], mask [steps, B];
-    ``seed`` keys the per-epoch shuffle.  Returns (new_variables, metrics)
-    where metrics carries summed loss/correct/count over the final epoch
-    and ``steps``, the optimizer steps taken on batches with a real
-    sample, over all epochs."""
+    ``key`` (a threefry key) keys the epoch shuffle, ``augment_fn(key,
+    x)`` (``data/augment.py``) and the model's step keys.  Returns
+    (new_variables, metrics) where metrics carries summed
+    loss/correct/count over the final epoch and ``steps``, the optimizer
+    steps taken on batches with a real sample, over all epochs."""
 
-    def loss_and_aux(params, others, global_params, x, y, m):
+    def loss_and_aux(params, others, global_params, x, y, m, key):
         variables = {**others, "params": params}
         if compute_dtype is not None:
             cvars = treelib.tree_cast_floats(variables, compute_dtype)
             cx = x.to(compute_dtype) if x.is_floating_point() else x
-            logits, new_vars = bundle.apply_train(cvars, cx)
+            logits, new_vars = bundle.apply_train(cvars, cx, key)
             new_vars = treelib.tree_cast_like(new_vars, variables)
         else:
-            logits, new_vars = bundle.apply_train(variables, x)
+            logits, new_vars = bundle.apply_train(variables, x, key)
         loss, aux = loss_fn(logits, y, m)
         if prox_mu:
             sq = treelib.tree_sq_norm(treelib.tree_sub(params, global_params))
             loss = loss + 0.5 * prox_mu * sq
         return loss, new_vars, aux
 
-    def local_update(variables, x, y, mask, seed: int):
+    def local_update(variables, x, y, mask, key):
         steps, bsz = x.shape[0], x.shape[1]
         n = steps * bsz
         global_params = variables["params"]
@@ -187,20 +205,27 @@ def make_local_update(
         names = list(params)
         real_steps = torch.zeros((), device=x.device)
         for ep in range(epochs):
+            ek = rnglib.fold_in(key, ep)
             if shuffle:
-                perm = torch.randperm(n, generator=generator(seed, ep))
-                perm = perm.to(x.device)
+                perm = rnglib.permutation(rnglib.fold_in(ek, 0), n, x.device)
                 xs = x.reshape(n, *x.shape[2:])[perm].reshape(x.shape)
                 ys = y.reshape(n, *y.shape[2:])[perm].reshape(y.shape)
                 ms = mask.reshape(n)[perm].reshape(mask.shape)
             else:
                 xs, ys, ms = x, y, mask
+            if augment_fn is not None:
+                # fresh augmentation of every sample once per epoch (the
+                # reference's torchvision semantics), one call per epoch
+                flat = augment_fn(rnglib.fold_in(ek, n + 1),
+                                  xs.reshape(n, *x.shape[2:]))
+                xs = flat.reshape(x.shape)
             sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
             for i in range(steps):
                 leaves = {k: params[k].detach().requires_grad_(True) for k in names}
                 with torch.enable_grad():
                     loss, new_vars, aux = loss_and_aux(
-                        leaves, others, global_params, xs[i], ys[i], ms[i])
+                        leaves, others, global_params, xs[i], ys[i], ms[i],
+                        rnglib.fold_in(ek, i + 1))
                     grads = torch.autograd.grad(loss, [leaves[k] for k in names])
                 with torch.no_grad():
                     grads = dict(zip(names, grads))

@@ -1,22 +1,50 @@
 """Per-round client sampling → participation masks (port of
 ``fedml_tpu/core/sampling.py``).
 
-``host_sample_ids`` is the numpy cohort draw every round driver shares;
-it is bit-identical to the JAX package's.  The on-device draws
-(``eligible_participation_mask``, ``inject_dropout``) come from a
-``torch.Generator`` seeded from (seed, round, stream tag): the same
-distributions and guarantees as the JAX draws, not the same bits.
+Every draw is the JAX package's, bit for bit: the same threefry keys
+(``core/rng.py``) under the same ``fold_in`` layout, so the same key and
+round give the same cohort, mask and dropout pattern.  ``host_sample_ids``
+is the numpy cohort draw every round driver shares.  The on-device draws
+run on the device of the ``participation`` tensor they are handed.
 """
 
 from __future__ import annotations
 
+from typing import Tuple
+
 import numpy as np
 import torch
 
-from fedml_tpu_torch.core.rng import generator
+from fedml_tpu_torch.core import rng as rnglib
 
 _SAMPLE_STREAM = 0x5A11
 _DROP_STREAM = 0x0D0D
+
+
+def sample_clients(key: rnglib.Key, round_idx: int, num_clients: int,
+                   num_per_round: int, device=None) -> torch.Tensor:
+    """Seeded uniform choice of ``num_per_round`` distinct client ids (the
+    head of a permutation under ``fold_in(key, round)``), int32; every
+    client when ``num_per_round >= num_clients``."""
+    if num_per_round >= num_clients:
+        return torch.arange(num_clients, dtype=torch.int32, device=device)
+    perm = rnglib.permutation(rnglib.fold_in(key, round_idx), num_clients, device)
+    return perm[:num_per_round].to(torch.int32)
+
+
+def mask_and_ids(key: rnglib.Key, round_idx: int, num_clients: int,
+                 num_per_round: int,
+                 device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    ids = sample_clients(key, round_idx, num_clients, num_per_round, device)
+    mask = torch.zeros(num_clients, device=device)
+    mask[ids.long()] = 1.0
+    return mask, ids
+
+
+def participation_mask(key: rnglib.Key, round_idx: int, num_clients: int,
+                       num_per_round: int, device=None) -> torch.Tensor:
+    """[num_clients] float mask with exactly ``num_per_round`` ones."""
+    return mask_and_ids(key, round_idx, num_clients, num_per_round, device)[0]
 
 
 def host_sample_ids(seed: int, round_idx: int, num_clients: int,
@@ -29,32 +57,36 @@ def host_sample_ids(seed: int, round_idx: int, num_clients: int,
     return np.sort(rng.choice(num_clients, num_per_round, replace=False))
 
 
-def eligible_participation_mask(seed: int, round_idx: int,
+def eligible_participation_mask(key: rnglib.Key, round_idx: int,
                                 participation: torch.Tensor,
                                 num_per_round: int) -> torch.Tensor:
     """Uniform draw of ``min(num_per_round, #eligible)`` distinct clients
-    among ``participation > 0``, as a mask.  Top-K over iid uniform
-    scores is a uniform K-subset, and it never comes up empty while any
-    client is eligible."""
-    g = generator(seed, round_idx, _SAMPLE_STREAM)
-    k = min(int(num_per_round), int(participation.shape[0]))
-    scores = torch.rand(participation.shape, generator=g).to(participation.device)
+    among ``participation > 0``, as a mask: top-K over uniform scores
+    under ``fold_in(fold_in(key, round), 0x5A11)``.  Top-K over iid
+    uniform scores is a uniform K-subset, and it never comes up empty
+    while any client is eligible."""
+    k = rnglib.fold_in(rnglib.fold_in(key, round_idx), _SAMPLE_STREAM)
+    num = min(int(num_per_round), int(participation.shape[0]))
+    scores = rnglib.uniform(k, participation.shape, participation.device)
     scores = torch.where(participation > 0, scores, torch.full_like(scores, -1.0))
-    idx = torch.topk(scores, k).indices
+    idx = torch.topk(scores, num).indices
     mask = torch.zeros_like(participation)
     mask[idx] = 1.0
     # ineligible slots can only be picked when eligible < K; strip them
     return mask * (participation > 0)
 
 
-def inject_dropout(seed: int, round_idx: int, participation: torch.Tensor,
+def inject_dropout(key: rnglib.Key, round_idx: int, participation: torch.Tensor,
                    drop_prob: float) -> torch.Tensor:
-    """Each participating client independently drops with ``drop_prob``.
-    Never drops everyone: if the draw kills every participant, the first
-    one is kept (a round with zero weight has no defined average)."""
-    g = generator(seed, round_idx, _DROP_STREAM)
-    u = torch.rand(participation.shape, generator=g).to(participation.device)
-    dropped = participation * (u < 1.0 - drop_prob).to(participation.dtype)
+    """Each participating client independently survives with
+    ``bernoulli(1 - drop_prob)`` under ``fold_in(fold_in(key, round),
+    0x0D0D)``.  Never drops everyone: if the draw kills every
+    participant, the first one is kept (a round with zero weight has no
+    defined average)."""
+    k = rnglib.fold_in(rnglib.fold_in(key, round_idx), _DROP_STREAM)
+    survive = rnglib.bernoulli(k, 1.0 - drop_prob, participation.shape,
+                               participation.device)
+    dropped = participation * survive.to(participation.dtype)
     first = torch.argmax(participation)
     rescue = torch.zeros_like(participation)
     rescue[first] = participation[first]

@@ -19,7 +19,7 @@ from fedml_tpu_torch.utils.device import DeviceLike
 def _not_ported(kind: str, name: str):
     return NotImplementedError(
         f"{kind} {name!r} is not ported to fedml_tpu_torch yet "
-        "(ROADMAP.md, queue A item 6: the rest of the model and data zoo)")
+        "(ROADMAP.md, queue A item 3: the rest of the model and data zoo)")
 
 
 def load_data(

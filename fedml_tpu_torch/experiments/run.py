@@ -5,18 +5,22 @@
 
 The config is the JAX package's ``ExperimentConfig``, flag for flag, plus
 ``--device`` ("" = the CUDA card, "cpu" = the CPU).  Ported so far:
-``fedavg`` (the FedAvg engine, ``resnet56`` on ``cifar10``) and
-``fedllm`` on one device (the transformer through ``FedAvgSimulation``).
+``fedavg`` (the FedAvg engine, ``resnet56`` on ``cifar10``, with the
+reference's per-epoch CIFAR augmentation, ``--data_augmentation 1`` by
+default) and ``fedllm`` on one device (the transformer through
+``FedAvgSimulation``); ``--checkpoint_every/--checkpoint_dir/--resume``
+(fedavg) and ``--crash_at_round`` with the JAX package's semantics.
 Every other algorithm, and the knobs whose machinery is not ported yet
-(``tp_degree``/``sp_degree``/``mesh``, ``compress``, checkpointing and
-crash injection, CIFAR augmentation), raise ``NotImplementedError``
-naming their ROADMAP item.  ``--ci 1`` shrinks everything for smoke runs.
-``main`` writes ``<run_dir>/metrics.jsonl`` through ``MetricsLogger``.
+(``tp_degree``/``sp_degree``/``mesh``, ``compress``), raise
+``NotImplementedError`` naming their ROADMAP item.  ``--ci 1`` shrinks
+everything for smoke runs.  ``main`` writes ``<run_dir>/metrics.jsonl``
+through ``MetricsLogger``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import os
 import sys
@@ -175,15 +179,17 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Fail before any work on a knob whose machinery is not ported."""
     if cfg.algorithm not in ("fedavg", "fedllm"):
         raise _not_ported(f"algorithm {cfg.algorithm!r}",
-                          "queue A item 7: the algorithm family")
+                          "queue A item 4: the algorithm family")
     if cfg.tp_degree > 1 or cfg.sp_degree > 1 or cfg.mesh or cfg.partition_rules:
         raise _not_ported("tp_degree/sp_degree/mesh (the multi-device engines)",
-                          "queue A item 9: transformer and parallel")
+                          "queue A item 6: transformer and parallel")
     if cfg.compress or cfg.compress_ef:
-        raise _not_ported("--compress/--compress_ef", "queue A item 5: compression")
-    if cfg.checkpoint_every or cfg.resume or cfg.crash_at_round >= 0:
-        raise _not_ported("--checkpoint_every/--resume/--crash_at_round",
-                          "queue A item 1: checkpointing")
+        raise _not_ported("--compress/--compress_ef", "queue A item 2: compression")
+
+
+# the drivers wired into CheckpointManager (the JAX package's FedAvg-engine
+# family, as far as it is ported)
+_RESUMABLE = frozenset(("fedavg",))
 
 
 def _fedavg_config(cfg: ExperimentConfig, ds):
@@ -203,6 +209,12 @@ def _fedavg_config(cfg: ExperimentConfig, ds):
 def run_experiment(cfg: ExperimentConfig, log_fn=print, metrics=None) -> dict:
     cfg = _apply_ci(cfg)
     _refuse_unported(cfg)
+    if (cfg.resume or cfg.checkpoint_every) and cfg.algorithm not in _RESUMABLE:
+        # before any work: a resume that silently retrained from round 0
+        # would pass for a successful one
+        raise SystemExit(
+            f"--resume/--checkpoint_every: algorithm {cfg.algorithm!r} has "
+            f"no checkpoint wiring (supported: {sorted(_RESUMABLE)})")
     t0 = time.time()
     # a file-less logger still feeds the process telemetry registry;
     # main() passes a run_dir-backed one so metrics.jsonl is emitted
@@ -232,23 +244,62 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
             num_layers=cfg.num_layers, seq_len=seq_len, device=device,
         )
     else:
-        if cfg.data_augmentation and ds.train_x.ndim == 4 and \
-                cfg.dataset in ("cifar10", "cifar100", "cinic10"):
-            # the reference's CIFAR loaders augment unconditionally; the
-            # port has no augment op yet, and training without it would be
-            # another task under the same flags
-            raise _not_ported(
-                "CIFAR augmentation (pass --data_augmentation 0 to train "
-                "without it)", "queue A item 1: data/augment.py")
         bundle = create_model(cfg.model, cfg.dataset, ds.num_classes,
                               input_shape=tuple(ds.train_x.shape[1:]),
                               device=device)
     sim = FedAvgSimulation(bundle, ds, _fedavg_config(cfg, ds),
-                           loss_fn=loss_fn, metrics=metrics, device=device)
+                           loss_fn=loss_fn, metrics=metrics, device=device,
+                           augment_fn=_augment_fn(cfg, ds))
+    done = _attach_checkpointing(cfg, sim)
+    if cfg.crash_at_round >= 0:
+        sim.crash_at_round = cfg.crash_at_round
     # run() already merges evaluate_global() into the final round
-    hist = sim.run(log_fn=log_fn)
-    return {"history": hist, "final": hist[-1] if hist else None,
-            "wall_s": time.time() - t0}
+    hist = sim.run(rounds=max(0, cfg.comm_round - done), log_fn=log_fn)
+    out = {"history": hist, "final": hist[-1] if hist else None,
+           "wall_s": time.time() - t0}
+    if done:
+        out["resumed_rounds"] = done
+    return out
+
+
+def _augment_fn(cfg: ExperimentConfig, ds):
+    """The reference's CIFAR-10 loader augments every epoch: crop (pad 4),
+    flip and Cutout(16), unless ``--data_augmentation 0``."""
+    if cfg.data_augmentation and ds.train_x.ndim == 4 and cfg.dataset == "cifar10":
+        from fedml_tpu_torch.data.augment import cifar_augment
+
+        return cifar_augment()
+    return None
+
+
+def _attach_checkpointing(cfg: ExperimentConfig, sim) -> int:
+    """Wire ``--checkpoint_every/--checkpoint_dir/--resume`` into the
+    simulation; returns the rounds a resume restored (0 otherwise)."""
+    if not (cfg.checkpoint_every or cfg.resume):
+        return 0
+    from fedml_tpu_torch.core.checkpoint import CheckpointManager
+
+    # the default directory is stable between a run and its --resume (and
+    # --comm_round extension, and another device) and unique per
+    # experiment: a hash of every other flag, so two sweep arms never
+    # resume from each other
+    stable = {k: v for k, v in dataclasses.asdict(cfg).items()
+              if k not in ("run_dir", "resume", "crash_at_round", "checkpoint_dir",
+                           "checkpoint_every", "comm_round", "device")}
+    tag = hashlib.sha1(json.dumps(stable, sort_keys=True).encode()).hexdigest()[:10]
+    ckdir = cfg.checkpoint_dir or os.path.join(
+        "runs", "ckpt", f"{cfg.algorithm}-{cfg.dataset}-seed{cfg.seed}-{tag}")
+    sim.attach_checkpointing(CheckpointManager(ckdir), cfg.checkpoint_every or 1)
+    if not cfg.resume:
+        return 0
+    done = sim.resume()
+    if done == 0:
+        # an explicit resume that restores nothing must not retrain from
+        # round 0 as if it had resumed
+        raise SystemExit(
+            f"--resume 1: no readable checkpoint in {ckdir} (pass the "
+            "original --checkpoint_dir, or drop --resume to start fresh)")
+    return done
 
 
 def main(argv=None):

@@ -111,9 +111,12 @@ class ModelBundle:
         return torch.func.functional_call(
             self.module, state, (x,), {"train": train, "updates": updates})
 
-    def apply_train(self, variables: Variables,
-                    x: torch.Tensor) -> Tuple[torch.Tensor, Variables]:
-        """Forward in train mode; returns (logits, updated variables)."""
+    def apply_train(self, variables: Variables, x: torch.Tensor,
+                    rng=None) -> Tuple[torch.Tensor, Variables]:
+        """Forward in train mode; returns (logits, updated variables).
+        ``rng`` is the step's threefry key (``core/rng.py``), as the JAX
+        contract hands it; no ported model draws from it."""
+        del rng
         updates: dict = {}
         logits = self._call(variables, x, True, updates)
         if "batch_stats" in variables:

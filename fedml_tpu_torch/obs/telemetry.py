@@ -81,6 +81,7 @@ class Telemetry:
     def __init__(self, max_events: int = 4096):
         self._lock = threading.Lock()
         self.counters: Dict[str, float] = {}
+        self.gauges: Dict[str, float] = {}
         self.hists: Dict[str, Histogram] = {}
         self._events: deque = deque(maxlen=max_events)
 
@@ -89,6 +90,17 @@ class Telemetry:
         key = metric_key(name, labels)
         with self._lock:
             self.counters[key] = self.counters.get(key, 0.0) + value
+
+    # -- gauges -------------------------------------------------------------
+    def gauge_set(self, name: str, value: float, **labels) -> None:
+        with self._lock:
+            self.gauges[metric_key(name, labels)] = float(value)
+
+    def gauge_max(self, name: str, value: float, **labels) -> None:
+        """High-water gauge: keeps the max ever seen (device peak bytes)."""
+        key = metric_key(name, labels)
+        with self._lock:
+            self.gauges[key] = max(self.gauges.get(key, -math.inf), float(value))
 
     # -- histograms ---------------------------------------------------------
     def observe(self, name: str, value: float, **labels) -> None:
@@ -121,6 +133,7 @@ class Telemetry:
         with self._lock:
             return {
                 "counters": dict(self.counters),
+                "gauges": dict(self.gauges),
                 "hists": {k: h.snapshot() for k, h in self.hists.items()},
             }
 

@@ -3,13 +3,15 @@
 data and the same flax variables.
 
 Setup: JAX ``CifarResNet`` Bottleneck (1,1,1) on 8x8 images, 3 clients x
-2 steps x batch 4, fp32, SGD lr 0.05 + momentum 0.9 + wd 1e-3,
-``shuffle=False`` (the shuffle streams are torch.Generator draws, not
-threefry, so only the unshuffled path can match bit for bit).  Client 1's
-second batch is pad-only (params frozen there; momentum and BN stats
-still advance) and client 2 does not participate.  Tolerance rtol/atol
-1e-4; the measured max abs difference on any variable after 2 rounds
-is 3.6e-7.
+2 steps x batch 4, fp32, SGD lr 0.05 + momentum 0.9 + wd 1e-3.  Client
+1's second batch is pad-only (params frozen there; momentum and BN stats
+still advance) and client 2 does not participate; the fixture's rounds
+run ``shuffle=False`` so that batch stays in place.  The random streams
+are JAX's threefry bits (``core/rng.py``); the shuffled, augmented,
+sampled and dropout rounds are held against the JAX engine in
+``tests/test_torch_fedavg_streams.py``.
+Tolerance rtol/atol 1e-4; the measured max abs difference on any
+variable after 2 rounds is 3.6e-7.
 """
 
 import jax
@@ -34,17 +36,21 @@ from fedml_tpu_torch.algorithms.fedavg import (
     make_round_fn,
 )
 from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
-from fedml_tpu_torch.core.rng import generator
+from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core.sampling import (
     eligible_participation_mask,
     host_sample_ids,
     inject_dropout,
+    mask_and_ids,
+    participation_mask,
+    sample_clients,
 )
 from fedml_tpu_torch.core.types import pack_clients
 from fedml_tpu_torch.data.synthetic import synthetic_classification
 from fedml_tpu_torch.models.base import ModelBundle
 from fedml_tpu_torch.models.convert import from_jax_variables, to_jax_variables
 from fedml_tpu_torch.models.resnet import Bottleneck, CifarResNet
+
 
 CPU = torch.device("cpu")
 K, STEPS, B, HW = 3, 2, 4, 8
@@ -110,7 +116,8 @@ def _assert_vars_close(tvars, jvars):
 def test_round_fn_matches_jax(setup):
     lu = _torch_local_update()
     rf = make_round_fn(lu, device="cpu")
-    state = ServerState(from_jax_variables(setup["jvars"], device="cpu"), (), 0, 0)
+    state = ServerState(from_jax_variables(setup["jvars"], device="cpu"), (), 0,
+                        rnglib.PRNGKey(0))
     args = _torch_args(setup["data"])
     jstate, jrows = setup["round"]
     for r in range(2):
@@ -124,7 +131,8 @@ def test_round_fn_matches_jax(setup):
 
 def test_multi_round_fn_matches_jax(setup):
     multi = make_multi_round_fn(_torch_local_update(), 2, device="cpu")
-    state = ServerState(from_jax_variables(setup["jvars"], device="cpu"), (), 0, 0)
+    state = ServerState(from_jax_variables(setup["jvars"], device="cpu"), (), 0,
+                        rnglib.PRNGKey(0))
     state, m = multi(state, *_torch_args(setup["data"]))
     jstate, jm = setup["multi"]
     for k, v in jm.items():
@@ -136,7 +144,7 @@ def test_zero_participation_round_is_a_noop(setup):
     rf = make_round_fn(_torch_local_update(), device="cpu")
     variables = from_jax_variables(setup["jvars"], device="cpu")
     x, y, mask, ns, _, ids = _torch_args(setup["data"])
-    new, m = rf(ServerState(variables, (), 0, 0), x, y, mask, ns,
+    new, m = rf(ServerState(variables, (), 0, rnglib.PRNGKey(0)), x, y, mask, ns,
                 torch.zeros(K), ids)
     assert float(m["participants"]) == 0.0
     for coll in variables:
@@ -163,20 +171,22 @@ def test_pack_and_sampling_match_jax_bytes():
 
 
 def test_shuffle_is_a_reproducible_per_epoch_permutation(setup):
-    """shuffle=True equals shuffle=False fed the same per-epoch permutation
-    of the pack, drawn from generator(seed, epoch)."""
+    """shuffle=True equals shuffle=False fed the same epoch permutation of
+    the pack: JAX's ``permutation(fold_in(fold_in(key, epoch), 0), n)``."""
     x, y, mask, _, _, _ = _torch_args(setup["data"])
     variables = from_jax_variables(setup["jvars"], device="cpu")
     n = STEPS * B
-    perm = torch.randperm(n, generator=generator(11, 0))
+    key = rnglib.PRNGKey(11)
+    perm = rnglib.permutation(rnglib.fold_in(rnglib.fold_in(key, 0), 0), n)
+    jkey = jax.random.fold_in(jax.random.fold_in(jax.random.PRNGKey(11), 0), 0)
+    assert perm.tolist() == np.asarray(jax.random.permutation(jkey, n)).tolist()
     assert sorted(perm.tolist()) == list(range(n))
-    assert not torch.equal(perm, torch.randperm(n, generator=generator(11, 1)))
-    a, ma = _torch_local_update(shuffle=True)(variables, x[0], y[0], mask[0], 11)
-    b, mb = _torch_local_update(shuffle=True)(variables, x[0], y[0], mask[0], 11)
+    a, ma = _torch_local_update(shuffle=True)(variables, x[0], y[0], mask[0], key)
+    b, mb = _torch_local_update(shuffle=True)(variables, x[0], y[0], mask[0], key)
     xs = x[0].reshape(n, HW, HW, 3)[perm].reshape(x[0].shape)
     c, mc = _torch_local_update(shuffle=False)(
         variables, xs, y[0].reshape(n)[perm].reshape(STEPS, B),
-        mask[0].reshape(n)[perm].reshape(STEPS, B), 0)
+        mask[0].reshape(n)[perm].reshape(STEPS, B), key)
     for k, v in a["params"].items():
         assert torch.equal(v, b["params"][k])
         assert torch.equal(v, c["params"][k])
@@ -184,13 +194,26 @@ def test_shuffle_is_a_reproducible_per_epoch_permutation(setup):
 
 
 def test_on_device_draws_keep_their_guarantees():
+    """The cohort and dropout draws are JAX's bits, and keep their
+    guarantees: exactly K among the eligible, never nobody."""
     elig = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0, 1.0])
+    key, jkey = rnglib.PRNGKey(7), jax.random.PRNGKey(7)
     for r in range(20):
-        m = eligible_participation_mask(7, r, elig, 3)
+        m = eligible_participation_mask(key, r, elig, 3)
         assert float(m.sum()) == 3.0 and float((m * (1 - elig)).sum()) == 0.0
-        assert torch.equal(m, eligible_participation_mask(7, r, elig, 3))
-        d = inject_dropout(7, r, elig, 0.99)
+        jm = jsampling.eligible_participation_mask(jkey, r, jnp.asarray(elig.numpy()), 3)
+        assert m.tolist() == np.asarray(jm).tolist()
+        d = inject_dropout(key, r, elig, 0.99)
         assert float(d.sum()) >= 1.0 and float((d * (1 - elig)).sum()) == 0.0
+        for p in (0.99, 0.4):
+            jd = jsampling.inject_dropout(jkey, r, jnp.asarray(elig.numpy()), p)
+            assert inject_dropout(key, r, elig, p).tolist() == np.asarray(jd).tolist()
+        ids = sample_clients(key, r, 20, 6)
+        assert ids.tolist() == np.asarray(jsampling.sample_clients(jkey, r, 20, 6)).tolist()
+        mask, ids2 = mask_and_ids(key, r, 20, 6)
+        jmask, _ = jsampling.mask_and_ids(jkey, r, 20, 6)
+        assert torch.equal(ids, ids2) and mask.tolist() == np.asarray(jmask).tolist()
+        assert torch.equal(participation_mask(key, r, 20, 6), mask)
 
 
 def test_simulation_run_fused_matches_run():
@@ -252,7 +275,8 @@ def test_local_update_bf16_prox_matches_jax(setup):
     lu = make_local_update(_torch_bundle(), opt, 2, shuffle=False, prox_mu=0.1,
                            compute_dtype=torch.bfloat16)
     tvars, tm = lu(from_jax_variables(setup["jvars"], device="cpu"),
-                   torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(mask), 0)
+                   torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(mask),
+                   rnglib.PRNGKey(0))
     assert float(tm["steps"]) == float(jm["steps"]) == 2.0   # 2 epochs x 1 real batch
     assert all(v.dtype == torch.float32 for v in tvars["batch_stats"].values())
     np.testing.assert_allclose(float(tm["loss_sum"]), float(jm["loss_sum"]),

@@ -39,6 +39,8 @@ row = FedAvgSimulation(resnet56_tpu(device="cpu"), ds, cfg, device="cpu").run()[
 assert np.isfinite(row["train_loss"]) and np.isfinite(row["test_loss"]), row
 import tempfile
 import fedml_tpu_torch.bench  # noqa: F401  (imported so the check below covers it)
+import fedml_tpu_torch.core.checkpoint  # noqa: F401
+import fedml_tpu_torch.data.augment  # noqa: F401
 from fedml_tpu_torch.experiments import run
 with tempfile.TemporaryDirectory() as d:
     out = run.main(["--algorithm", "fedllm", "--dataset", "fed_shakespeare",
