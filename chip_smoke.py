@@ -69,6 +69,21 @@ Phases, in order; any failure exits non-zero:
              resumes; ``run_fused_sampled``.  All three must end with equal
              variables, bit for bit.  Then ``experiments.run.main`` fedavg at
              a small cut with augmentation on and ``--checkpoint_every 1``.
+9. init    — the seeded init (flax's variables under ``PRNGKey(0)``) of
+             ResNet-56 and a small transformer drawn on the card, bitwise
+             against the same draw on the CPU.
+10. compress — [sim]'s configuration with the int8 codec and error
+             feedback: ``run()``, crash + ``resume()`` and
+             ``run_fused_sampled`` end bit-identical (variables and
+             residuals); one round each of int4, topk0.01 + EF and bf16;
+             the uplink bytes per upload against the JAX package's; the
+             qsgd8 payload of a trained update on the card against the
+             CPU's (sha256); the codec stage's time and kernel launches per
+             client (fused, and the per-leaf plain version), and its share
+             of a 4 x 8 x 64 round, timed in turns with the same round
+             without a codec.
+11. pack   — the native row-gather packer must have built and loaded; the
+             pack time of a 10 x 1536-image cohort, native and numpy.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -293,11 +308,12 @@ def phase_check():
     """Kernel-conv ResNet-56 vs library-conv ResNet-56, same variables."""
     import torch
 
+    from fedml_tpu_torch.core.rng import PRNGKey
     from fedml_tpu_torch.models.resnet import resnet56
     from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
 
     kern, base = resnet56_tpu(conv_variant="kernel"), resnet56()
-    variables = kern.init(torch.Generator().manual_seed(1))
+    variables = kern.init(PRNGKey(1))
     x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(2)).cuda()
     with torch.no_grad():
         le, lb = kern.apply_eval(variables, x), base.apply_eval(variables, x)
@@ -402,6 +418,7 @@ def phase_flash_check():
     plain version."""
     import torch
 
+    from fedml_tpu_torch.core.rng import PRNGKey
     from fedml_tpu_torch.models.transformer import transformer_lm
     from fedml_tpu_torch.ops.flash_attention import (
         _flash_bwd, attention_plain, flash_attention_fwd, flash_attention_with_lse)
@@ -410,7 +427,7 @@ def phase_flash_check():
               seq_len=1024)
     kern = transformer_lm(**kw)
     plain = transformer_lm(**kw, attn_fn=lambda q, k, v, c: attention_plain(q, k, v, c)[0])
-    variables = kern.init(torch.Generator().manual_seed(3))
+    variables = kern.init(PRNGKey(3))
     x = torch.randint(0, 8192, (2, 1024), generator=torch.Generator().manual_seed(4)).cuda()
     before = flash_attention_fwd.launches
     with torch.no_grad():
@@ -568,7 +585,7 @@ def phase_main(profile: bool):
     (x, y, m, ns), _ = device_resident_pack(
         ds, ids, batch, steps_per_epoch=steps, seed=0, device=torch.device("cuda"))
     part = torch.ones(clients, device="cuda")
-    state = ServerState(bundle.init(torch.Generator().manual_seed(0)), (), 0, PRNGKey(0))
+    state = ServerState(bundle.init(PRNGKey(0)), (), 0, PRNGKey(0))
     before = {k: v.clone() for k, v in state.variables["params"].items()}
     fused = make_multi_round_fn(lu, rounds)
     state, _ = make_multi_round_fn(lu, 1)(state, x, y, m, ns, part, ids)  # warm-up
@@ -945,6 +962,357 @@ def phase_sim(step_ms: float):
     return rec
 
 
+def phase_init():
+    """The seeded init (flax's model under PRNGKey(s)) drawn on the card
+    against the same draw on the CPU, bit for bit."""
+    import torch
+
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+    from fedml_tpu_torch.models.transformer import transformer_lm
+
+    rec = {}
+    for name, make in (
+            ("resnet56_tpu", lambda dev: resnet56_tpu(device=dev)),
+            ("transformer_w256_l2", lambda dev: transformer_lm(
+                vocab_size=1024, embed_dim=256, num_heads=4, num_layers=2,
+                seq_len=128, device=dev))):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = make("cuda").init(PRNGKey(0))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host = make("cpu").init(PRNGKey(0))
+        host_s = time.perf_counter() - t0
+        n = sum(v.numel() for col in host.values() for v in col.values())
+        same = all(torch.equal(card[c][k].cpu(), v) for c in host for k, v in host[c].items())
+        print(f"[init] {name}: {n} values, card {card_s:.3f} s, cpu {host_s:.3f} s, "
+              f"card == cpu bitwise {same}")
+        if not same:
+            fail(f"init {name}: the card's draw is not the CPU's")
+        rec[name] = {"values": n, "card_s": card_s, "cpu_s": host_s}
+    return rec
+
+
+def _host_profile(fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: CUDA kernels launched,
+    and each host op's count and self CPU time (ms)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ops = {e.key: (e.count, e.self_cpu_time_total / 1e3) for e in events
+           if e.device_type == torch.autograd.DeviceType.CPU}
+    return {"launches": sum(e.count for e in events
+                            if e.device_type == torch.autograd.DeviceType.CUDA),
+            "host_ms": sum(t for _, t in ops.values()), "ops": ops}
+
+
+def _sync_ms(fn, reps: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_compress():
+    """FedAvgSimulation over the kernel ResNet-56 with the int8 codec and
+    error feedback, at [sim]'s cohort geometry: run(), crash + resume()
+    and run_fused_sampled, bit for bit (variables and residuals); one
+    round each of qsgd4, topk0.01 + EF and bf16; the qsgd8 payload on the
+    card against the CPU's; the uplink bytes; the codec stage's time and
+    launches per client and its share of a round."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch import compress
+    from fedml_tpu_torch.algorithms.fedavg import (
+        FedAvgConfig, FedAvgSimulation, InjectedCrash, ServerState, make_round_fn)
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.core.checkpoint import CheckpointManager
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.metrics import MetricsLogger
+    from fedml_tpu_torch.core.tree import tree_map
+    from fedml_tpu_torch.data.augment import cifar_augment
+    from fedml_tpu_torch.data.cifar import load_cifar10
+    from fedml_tpu_torch.experiments.registry import shrink_dataset
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+    from fedml_tpu_torch.obs.telemetry import Telemetry
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ds = shrink_dataset(load_cifar10(num_clients=8, partition="hetero",
+                                     partition_alpha=0.5, seed=0), 128, 256)
+    base = dict(num_clients=8, clients_per_round=4, comm_rounds=3, epochs=1,
+                batch_size=64, lr=0.001, momentum=0.9, weight_decay=1e-3,
+                frequency_of_the_test=1, seed=0, compute_dtype="bf16", drop_prob=0.25)
+
+    def sim(codec="int8", ef=True, **kw):
+        cfg = FedAvgConfig(**{**base, **kw}, compress_codec=codec, compress_ef=ef)
+        return FedAvgSimulation(resnet56_tpu(conv_variant="kernel"), ds, cfg,
+                                augment_fn=cifar_augment(),
+                                metrics=MetricsLogger(telemetry=Telemetry()))
+
+    a = sim()
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = a.run()
+    run_s = time.perf_counter() - t0
+    seen = read_launches()
+    train_fwd = base["comm_rounds"] * base["clients_per_round"] * a.steps_per_epoch
+    eval_fwd = base["comm_rounds"] * math.ceil(len(ds.test_y) / 64)
+    with tempfile.TemporaryDirectory() as ck:
+        b = sim()
+        b.attach_checkpointing(CheckpointManager(ck), every=1)
+        b.crash_at_round = 2
+        try:
+            b.run()
+            fail("compress: the scheduled crash did not happen")
+        except InjectedCrash as crash:
+            crashed_at = crash.round_idx
+        b = sim()
+        b.attach_checkpointing(CheckpointManager(ck), every=1)
+        resumed_from = b.resume()
+        b.run(base["comm_rounds"] - resumed_from)
+    c = sim()
+    c.run_fused_sampled(rounds_per_call=2)
+
+    def max_diff(x, y):
+        pairs = [(x.state.variables, y.state.variables), (x.state.residuals, y.state.residuals)]
+        return max((p[col][k].float() - q[col][k].float()).abs().max().item()
+                   for p, q in pairs for col in p for k in p[col])
+
+    diff_resume, diff_fused = max_diff(a, b), max_diff(a, c)
+    res_norm = max(v.abs().max().item() for col in a.state.residuals.values()
+                   for v in col.values())
+    counters = a.metrics.telemetry.snapshot()["counters"]
+    up = "{msg_type=C2S_SEND_MODEL}"
+    raw, enc = counters["comm.raw_bytes" + up], counters["comm.compressed_bytes" + up]
+    uploads = counters["comm.recv_msgs" + up]
+    participants = [r["participants"] for r in hist]
+    rec = {"run_s": run_s, "participants": participants, "crashed_at": crashed_at,
+           "resumed_from": resumed_from, "max_abs_diff_resume": diff_resume,
+           "max_abs_diff_fused_sampled": diff_fused, "max_abs_residual": res_norm,
+           "launches": seen["conv3x3_mxu"], "tc_launches": seen["conv3x3_mxu_tc"],
+           "uplink_bytes": {"fp32": raw / uploads, "int8": enc / uploads},
+           "final_test_acc": hist[-1]["test_acc"]}
+    print(f"[compress] FedAvgSimulation resnet56_tpu bf16 + cifar_augment, int8 + error "
+          f"feedback, 8 clients (4 per round, drop_prob 0.25), {a.steps_per_epoch} steps "
+          f"per client, 3 rounds: run() {run_s:.3f} s, participants {participants}, "
+          f"test_acc {hist[-1]['test_acc']:.4f}, max |residual| {res_norm:.3g}; conv3x3_mxu "
+          f"launches {seen['conv3x3_mxu']} ({seen['conv3x3_mxu_tc']} tensor-core) for "
+          f"{train_fwd} train + {eval_fwd} eval forwards")
+    print(f"[compress] crash before round {crashed_at}, resume() from round "
+          f"{resumed_from}: max |variable or residual - run()| {diff_resume:.3g}; "
+          f"run_fused_sampled: {diff_fused:.3g}")
+    if seen["conv3x3_mxu"] != 19 * (train_fwd + eval_fwd) or \
+            seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * train_fwd:
+        fail(f"compress: conv launches {seen}, expected {19 * (train_fwd + eval_fwd)} "
+             f"({TC_PER_FORWARD * train_fwd} tensor-core)")
+    if not (crashed_at == 2 and resumed_from == 2):
+        fail(f"compress: crashed at {crashed_at}, resumed from {resumed_from}")
+    if diff_resume != 0.0 or diff_fused != 0.0:
+        fail("compress: crash + resume or run_fused_sampled is not bit-identical to run()")
+    if not (res_norm > 0 and math.isfinite(hist[-1]["train_loss"])):
+        fail(f"compress: residuals {res_norm}, metrics {hist[-1]}")
+
+    # one round of each other codec; the uplink bytes per upload
+    for name, ef in (("int4", False), ("topk0.01", True), ("bf16", False)):
+        s = sim(name, ef, comm_rounds=1)
+        row = s.run()[-1]
+        cnt = s.metrics.telemetry.snapshot()["counters"]
+        per = cnt["comm.compressed_bytes" + up] / cnt["comm.recv_msgs" + up]
+        rec["uplink_bytes"][name] = per
+        print(f"[compress] {name}{' + error feedback' if ef else ''}: 1 round, train_loss "
+              f"{row['train_loss']:.4f}, test_acc {row['test_acc']:.4f}, {per:.0f} uplink "
+              f"bytes per upload")
+        if not math.isfinite(row["train_loss"]):
+            fail(f"compress {name}: non-finite metrics {row}")
+    ub = rec["uplink_bytes"]
+    print(f"[compress] uplink bytes per ResNet-56 upload: fp32 {ub['fp32']:.0f}, int8 "
+          f"{ub['int8']:.0f} ({ub['fp32'] / ub['int8']:.2f}x), int4 {ub['int4']:.0f}, "
+          f"topk0.01 {ub['topk0.01']:.0f}, bf16 {ub['bf16']:.0f}")
+    want = {"fp32": 2_401_256, "int8": 610_346, "int4": 312_525, "topk0.01": 48_904,
+            "bf16": 1_200_628}
+    if ub != want:
+        fail(f"compress: uplink bytes {ub}, the JAX package's are {want}")
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+    # the qsgd8 payload of a trained update, on the card and on the CPU
+    g = resnet56_tpu(conv_variant="kernel").init(rng.PRNGKey(0))  # the run's start
+    codec, key = compress.get_codec("int8"), rng.PRNGKey(2)
+    delta = tree_map(lambda v, w: v.float() - w.float(), a.state.variables, g)
+    card_wire = compress.wire_encode_tree(codec, delta, key)
+    host_wire = compress.wire_encode_tree(codec, tree_map(lambda v: v.cpu(), delta), key)
+    card_digest = compress.wire_tree_digest({"leaves": card_wire})
+    host_digest = compress.wire_tree_digest({"leaves": host_wire})
+    # and the update as the server decodes it, through the fused form
+    host_delta = tree_map(lambda v: v.cpu(), delta)
+    decoded = []
+    for tree in (delta, host_delta):
+        lay = compress.FlatLayout(tree, next(iter(tree["params"].values())).device)
+        decoded.append(compress.roundtrip_flat(codec, lay.flatten(tree), key, lay).cpu())
+    same_decoded = torch.equal(decoded[0], decoded[1])
+    print(f"[compress] qsgd8 payload of a ResNet-56 update (sha256 over 292 leaves): "
+          f"card {card_digest[:16]}, cpu {host_digest[:16]}, equal "
+          f"{card_digest == host_digest}; decoded update card == cpu bitwise {same_decoded}")
+    if card_digest != host_digest or not same_decoded:
+        fail("compress: the card's qsgd8 payload or decoded update is not the CPU's")
+    rec.update(payload_sha256_card=card_digest, payload_sha256_cpu=host_digest)
+
+    # the codec stage per client: fused (what the round runs) and per leaf
+    layout = compress.FlatLayout(g, torch.device("cuda"))
+    gflat = layout.flatten(g)
+    res = layout.flatten(delta) * 0.5
+
+    def fused():
+        return compress.uplink_roundtrip(codec, layout, gflat, a.state.variables, g,
+                                         key, res)
+
+    def per_leaf():
+        return compress.roundtrip_tree(codec, delta, key)
+
+    stage_ms, leaf_ms = _sync_ms(fused, 20), _sync_ms(per_leaf, 2)
+    stage_launches = _host_profile(fused)["launches"]
+    leaf_launches = _host_profile(per_leaf)["launches"]
+    print(f"[compress] codec stage per client (int8 + EF, ResNet-56, host clock, synced): "
+          f"fused {stage_ms:.3f} ms, {stage_launches} kernel launches; per leaf "
+          f"{leaf_ms:.3f} ms, {leaf_launches} launches")
+
+    # its share of a round: the same round with and without the codec
+    clients, steps, batch = 4, 8, 64
+    bundle = resnet56_tpu(conv_variant="kernel")
+    lu = make_local_update(bundle, make_client_optimizer("sgd", 0.001, momentum=0.9,
+                                                         weight_decay=1e-3),
+                           1, compute_dtype=torch.bfloat16)
+    host_rng = np.random.RandomState(0)
+    args = (torch.from_numpy(host_rng.rand(clients, steps, batch, 32, 32, 3)
+                             .astype(np.float32)).cuda(),
+            torch.from_numpy(host_rng.randint(0, 10, (clients, steps, batch))
+                             .astype(np.int32)).cuda(),
+            torch.ones((clients, steps, batch), device="cuda"),
+            torch.full((clients,), float(steps * batch), device="cuda"),
+            torch.ones((clients,), device="cuda"), np.arange(clients))
+    variables = bundle.init(rng.PRNGKey(0))
+    zeros = tree_map(lambda v: torch.zeros((clients, *v.shape), device="cuda"), variables)
+    plain_state = ServerState(variables, (), 0, rng.PRNGKey(0))
+    comp_state = ServerState(variables, (), 0, rng.PRNGKey(0), zeros)
+    rounds = {"plain": (make_round_fn(lu), plain_state),
+              "int8_ef": (make_round_fn(lu, codec=codec, error_feedback=True), comp_state)}
+
+    def round_s(name):
+        fn, state = rounds[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, m = fn(state, *args)
+        float(m["loss_sum"])
+        return time.perf_counter() - t0
+
+    for name in rounds:  # warm-up
+        round_s(name)
+    times = {name: [] for name in rounds}
+    for name in ("plain", "int8_ef", "int8_ef", "plain") * 3:
+        times[name].append(round_s(name))
+    plain_s, comp_s = (float(np.median(times[n])) for n in ("plain", "int8_ef"))
+    q1, q3 = np.percentile(times["plain"], [25, 75])
+    share = (comp_s - plain_s) / comp_s
+    print(f"[compress] round of {clients} clients x {steps} steps x batch {batch} (bf16, "
+          f"kernel conv), 3 x in turns plain/int8+EF/int8+EF/plain: plain "
+          f"{[round(t, 4) for t in times['plain']]} s, int8 + EF "
+          f"{[round(t, 4) for t in times['int8_ef']]} s; medians {plain_s:.4f} / "
+          f"{comp_s:.4f} s (the plain rounds' interquartile spread {q3 - q1:.4f} s): the "
+          f"codec stage's share {100 * share:.2f}% ({1e3 * (comp_s - plain_s) / clients:.2f} "
+          f"ms per client)")
+    # where a round's extra host time goes: one profiled round of each,
+    # ops ranked by how much more host time they took with the codec
+    # (one step per client: the codec's cost does not depend on the steps)
+    short = (args[0][:, :1], args[1][:, :1], args[2][:, :1],
+             torch.full((clients,), float(batch), device="cuda"), *args[4:])
+    prof = {name: _host_profile(lambda n=name: rounds[n][0](rounds[n][1], *short))
+            for name in rounds}
+    extra = (prof["int8_ef"]["launches"] - prof["plain"]["launches"]) / clients
+    grown = sorted(prof["int8_ef"]["ops"], key=lambda op: prof["plain"]["ops"].get(
+        op, (0, 0.0))[1] - prof["int8_ef"]["ops"][op][1])[:5]
+    print(f"[compress] profiled rounds: plain {prof['plain']['launches']} launches, "
+          f"{prof['plain']['host_ms']:.1f} ms host op time; int8 + EF "
+          f"{prof['int8_ef']['launches']} launches ({extra:.0f} more per client), "
+          f"{prof['int8_ef']['host_ms']:.1f} ms host op time")
+    for op in grown:
+        (cp, tp), (cc, tc) = prof["plain"]["ops"].get(op, (0, 0.0)), prof["int8_ef"]["ops"][op]
+        print(f"[compress]   {op[:48]:48s} plain x{cp} {tp:.1f} ms, int8 + EF x{cc} "
+              f"{tc:.1f} ms")
+    rec.update(stage_ms_per_client=stage_ms, stage_launches_per_client=stage_launches,
+               round_launches_per_client_added=extra,
+               per_leaf_ms_per_client=leaf_ms, per_leaf_launches_per_client=leaf_launches,
+               round_plain_s=times["plain"], round_int8_ef_s=times["int8_ef"],
+               stage_share_of_round=share, round_plain_spread_s=q3 - q1)
+    del rounds, plain_state, comp_state, a, b, c
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_pack():
+    """The native row-gather packer: it must be the compiled library (no
+    silent numpy fallback), byte-identical to numpy; the pack time of a
+    10 x 1536-image CIFAR cohort."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.types import pack_clients
+    from fedml_tpu_torch.data.cifar import load_cifar10
+    from fedml_tpu_torch.native import native_available
+    from fedml_tpu_torch.native import packer
+
+    if not native_available():
+        fail("pack: the native packer did not build or load")
+    ds = load_cifar10(num_clients=10, partition="homo", seed=0)
+    ids = np.arange(10)
+
+    def pack(**kw):
+        return pack_clients(ds, ids, 64, steps_per_epoch=24, seed=0, **kw)
+
+    def ms(fn, reps=5):
+        fn()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    native = pack()
+    native_ms, reuse_ms = ms(pack), ms(lambda: pack(reuse_buffers=True))
+    lib = packer._lib
+    packer._lib = None  # the numpy fallback, for comparison
+    try:
+        numpy_pack = pack()
+        numpy_ms = ms(pack)
+    finally:
+        packer._lib = lib
+    same = all(np.asarray(getattr(native, f)).tobytes() == np.asarray(getattr(numpy_pack, f))
+               .tobytes() for f in ("x", "y", "mask", "num_samples"))
+    mb = native.x.nbytes / 1e6
+    print(f"[pack] native packer loaded ({packer._LIB.name}); a 10 x 1536-image cohort "
+          f"({mb:.1f} MB of images): native {native_ms:.2f} ms, native with reused "
+          f"buffers {reuse_ms:.2f} ms, numpy {numpy_ms:.2f} ms (host clock); "
+          f"byte-identical {same}")
+    if not same:
+        fail("pack: the native pack differs from numpy's")
+    return {"native_ms": native_ms, "reuse_ms": reuse_ms, "numpy_ms": numpy_ms,
+            "cohort_mb": mb}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write every per-case number here as JSON")
@@ -971,6 +1339,9 @@ def main() -> int:
     rng_rec = phase_rng()
     north_rec = phase_north_star(args.profile)
     sim_rec = phase_sim(north_rec["step_ms"])
+    init_rec = phase_init()
+    compress_rec = phase_compress()
+    pack_rec = phase_pack()
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -984,7 +1355,8 @@ def main() -> int:
         "route": "cuda",
         "source": "fedml_tpu_torch/ops/csrc/conv_mxu.cu",
         "replaces": "fedml_tpu/ops/conv_mxu.py:72",
-        "launches": main_rec["launches"] + north_rec["launches"] + sim_rec["launches"],
+        "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
+                     + compress_rec["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -1019,7 +1391,8 @@ def main() -> int:
             json.dump({"gpu": smi, "build_s": build_s, "cases": cases,
                        "flash_cases": flash_cases, "main": main_rec,
                        "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
-                       "sim": sim_rec, "kernels": kernels}, f, indent=1)
+                       "sim": sim_rec, "init": init_rec, "compress": compress_rec,
+                       "pack": pack_rec, "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

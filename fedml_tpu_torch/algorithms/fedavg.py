@@ -10,11 +10,18 @@ no-op, not a division.  With an ``aggregate_transform`` (robust
 aggregation's hook) the clients' variables are stacked first, transformed
 together, then folded in the same order.
 
+With a ``codec`` (``compress/``) each client's update goes through the
+lossy uplink before it is folded in: the server aggregates
+``g + decode(encode(c − g))``, with the error-feedback residual of the
+client's slot added to the update first and the new quantization error
+kept in ``ServerState.residuals``.
+
 Randomness is the JAX package's, bit for bit (``core/rng.py``): the round
 key ``k_round = fold_in(state.key, round)``, the training stream
 ``fold_in(k_round, 0)`` with one key per client slot, the aggregation
-stream ``fold_in(k_round, 1)``.  So R rounds of a fused driver equal R
-calls of the round function, and a checkpoint of the state resumes
+stream ``fold_in(k_round, 1)``, the compression stream
+``fold_in(k_round, 2)``.  So R rounds of a fused driver equal R calls of
+the round function, and a checkpoint of the state resumes
 bit-identically.
 """
 
@@ -26,6 +33,13 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from fedml_tpu_torch.compress.codecs import (
+    COMPRESS_STREAM,
+    FlatLayout,
+    encoded_nbytes,
+    get_codec,
+    uplink_roundtrip,
+)
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.client import (
@@ -64,7 +78,8 @@ class ServerState(NamedTuple):
     opt_state: Any
     round_idx: int
     key: rnglib.Key
-    # error-feedback residuals of update compression: () until that is ported
+    # error-feedback residual store of update compression: the variables'
+    # tree with a leading [num_clients] axis, fp32, () when EF is off
     residuals: Any = ()
 
 
@@ -105,6 +120,7 @@ def make_round_fn(
     aggregate_transform: Optional[Callable] = None,
     device: DeviceLike = None,
     codec=None,
+    error_feedback: bool = False,
     axis_name: Optional[str] = None,
     aggregate_impl: Optional[Callable] = None,
 ):
@@ -122,29 +138,60 @@ def make_round_fn(
     variables stacked on a leading K axis, with one aggregation-stream key
     per client (``keys`` [K, 2]), before the weighted sum.
 
-    ``codec``, ``axis_name`` and ``aggregate_impl`` (lossy uplink, the
-    multi-device mesh, pluggable aggregation) are not ported yet."""
-    for name, value in (("codec", codec), ("axis_name", axis_name),
+    ``codec`` (a ``compress`` LeafCodec) runs each client's update
+    ``delta = c − g`` (fp32) through ``decode(encode(delta))`` under
+    ``fold_in(fold_in(k_round, 2), slot)`` before aggregation: what a
+    real transport would reconstruct.  ``error_feedback`` adds the slot's
+    row of ``state.residuals`` to ``delta`` first and keeps ``delta −
+    decoded`` there for the next round, for participating clients only.
+
+    ``axis_name`` and ``aggregate_impl`` (the multi-device mesh,
+    pluggable aggregation) are not ported yet."""
+    for name, value in (("axis_name", axis_name),
                         ("aggregate_impl", aggregate_impl)):
         if value is not None:
             raise NotImplementedError(f"make_round_fn({name}=...) is not ported yet")
+    if error_feedback and codec is None:
+        raise ValueError("error_feedback needs a codec")
     dev = resolve_device(device)
+    layout: Optional[FlatLayout] = None  # the model's, built at the first round
 
     @torch.no_grad()
     def round_fn(state: ServerState, x, y, mask, num_samples, participation,
                  slot_ids):
+        nonlocal layout
         x, y, mask, num_samples, participation = (
             t.to(dev) for t in (x, y, mask, num_samples, participation))
         weights = participation * num_samples  # sample-weighted, masked
         ids = [int(i) for i in np.asarray(torch.as_tensor(slot_ids).cpu())]
         k_round = rnglib.fold_in(state.key, state.round_idx)
         k_train = rnglib.fold_in(k_round, _TRAIN_STREAM)
+        residuals = state.residuals
+        if codec is not None:
+            k_comp = rnglib.fold_in(k_round, COMPRESS_STREAM)
+            if layout is None:
+                layout = FlatLayout(state.variables, dev)
+            global_flat = layout.flatten(state.variables)
+            if error_feedback:
+                if not isinstance(residuals, dict):
+                    raise ValueError("error_feedback needs the residual store "
+                                     "in state.residuals")
+                residuals = treelib.tree_map(torch.clone, residuals)
         num = None
         clients = []
         train_metrics: dict = {}
         for k, slot in enumerate(ids):
             cvars, cm = local_update(state.variables, x[k], y[k], mask[k],
                                      rnglib.fold_in(k_train, slot))
+            if codec is not None:
+                old = layout.row(residuals, slot) if error_feedback else None
+                cvars, new = uplink_roundtrip(
+                    codec, layout, global_flat, cvars, state.variables,
+                    rnglib.fold_in(k_comp, slot), old)
+                if error_feedback:
+                    # a client that did not report keeps its residual
+                    layout.set_row(residuals, slot,
+                                   torch.where(participation[k] > 0, new, old))
             if aggregate_transform is None:
                 num = treelib.tree_fold_weighted(num, cvars, weights[k])
             else:
@@ -170,7 +217,7 @@ def make_round_fn(
         new_vars, new_opt = server_update(state.variables, agg, state.opt_state)
         train_metrics["participants"] = participation.sum()
         return ServerState(new_vars, new_opt, state.round_idx + 1, state.key,
-                           state.residuals), train_metrics
+                           residuals), train_metrics
 
     return round_fn
 
@@ -286,6 +333,12 @@ class FedAvgConfig:
     compute_dtype: Optional[str] = None
     # each sampled client independently drops mid-round with this probability
     drop_prob: float = 0.0
+    # update compression: the uplink codec simulated inside the round,
+    # "int8"/"qsgd8", "int4"/"qsgd4", "bf16", "topk<rate>"; None/"" = off.
+    # compress_ef threads the error-feedback residual store through
+    # ServerState (needed for topk, recommended for the quantizers)
+    compress_codec: Optional[str] = None
+    compress_ef: bool = False
 
 
 class FedAvgSimulation:
@@ -297,7 +350,10 @@ class FedAvgSimulation:
     augmentation of the local update; ``aggregate_transform`` the round's
     hook (``make_round_fn``); ``server_opt_init(variables)`` the initial
     server optimizer state ``server_update`` reads; ``client_lr`` a float
-    or schedule (count -> lr) in place of ``config.lr``."""
+    or schedule (count -> lr) in place of ``config.lr``.
+    ``config.compress_codec`` runs the uplink codec inside the round, with
+    a zero residual store per client at round 0 under ``compress_ef``.
+    The initial variables are flax's under ``PRNGKey(config.seed)``."""
 
     def __init__(
         self,
@@ -333,20 +389,37 @@ class FedAvgSimulation:
             prox_mu=config.prox_mu, augment_fn=augment_fn,
             compute_dtype=resolve_compute_dtype(config.compute_dtype),
         )
+        self._server_update = server_update
+        self._aggregate_transform = aggregate_transform
+        self._codec = get_codec(config.compress_codec)
+        self._codec_ef = bool(config.compress_ef) and self._codec is not None
+        if (self._codec is not None and type(self)._build_round_fn
+                is not FedAvgSimulation._build_round_fn):
+            # a subclass's own round kernel has no compression stage:
+            # refuse rather than silently train uncompressed
+            raise ValueError(
+                f"{type(self).__name__} builds its own round kernel; "
+                "compress_codec is only wired through the base FedAvg "
+                "kernel (make_round_fn)")
         # new-signature tracking (obs layer): a cohort geometry that varies
         # per round shows as calls.new_signature{fn=round_fn} climbing
         tel = self.metrics.telemetry
-        self.round_fn = instrument_signatures(
-            make_round_fn(self.local_update, server_update=server_update,
-                          aggregate_transform=aggregate_transform,
-                          device=self.device),
-            "round_fn", telemetry=tel)
+        self.round_fn = instrument_signatures(self._build_round_fn(),
+                                              "round_fn", telemetry=tel)
         self.evaluator = instrument_signatures(make_evaluator(bundle, loss_fn),
                                                "evaluator", telemetry=tel)
-        variables = bundle.init(torch.Generator().manual_seed(config.seed))
+        variables = bundle.init(rnglib.PRNGKey(config.seed))
         opt_state = server_opt_init(variables) if server_opt_init else ()
+        # EF residual store: one fp32 row per client of the whole
+        # population, so sampled cohorts gather/scatter rows by slot id
+        residuals = ()
+        if self._codec_ef:
+            residuals = treelib.tree_map(
+                lambda t: torch.zeros((config.num_clients, *t.shape),
+                                      dtype=torch.float32, device=self.device),
+                variables)
         self.state = ServerState(variables, opt_state, 0,
-                                 rnglib.PRNGKey(config.seed))
+                                 rnglib.PRNGKey(config.seed), residuals)
         self.steps_per_epoch = cohort_steps_per_epoch(dataset, config.batch_size)
         self._test_pack = None  # (x, y, mask) on device, built at first eval
         self.history = []
@@ -360,13 +433,25 @@ class FedAvgSimulation:
         self._model_nbytes = sum(
             t.numel() * t.element_size()
             for t in treelib.tree_leaves(variables))
+        # exact encoded bytes per upload (static given the shapes)
+        self._enc_nbytes = (encoded_nbytes(self._codec, variables)
+                            if self._codec is not None else self._model_nbytes)
+
+    def _build_round_fn(self):
+        """Subclass hook: the round kernel (FedNova and FedNAS build their
+        own; those refuse ``compress_codec``)."""
+        return make_round_fn(
+            self.local_update, server_update=self._server_update,
+            aggregate_transform=self._aggregate_transform, device=self.device,
+            codec=self._codec, error_feedback=self._codec_ef)
 
     # -- checkpoint/resume --------------------------------------------------
     def attach_checkpointing(self, manager, every: int = 1) -> None:
         """Save the full round state (variables, server optimizer state,
-        round index, key) every ``every`` completed rounds and at the end
-        of each run call.  Every random stream derives from ``(state.key,
-        state.round_idx)``, so a restored state continues bit-identically."""
+        round index, key, EF residuals) every ``every`` completed rounds
+        and at the end of each run call.  Every random stream derives from
+        ``(state.key, state.round_idx)``, so a restored state continues
+        bit-identically."""
         self._ckpt_mgr = manager
         self._ckpt_every = max(1, int(every))
 
@@ -434,7 +519,12 @@ class FedAvgSimulation:
                          uploads: Optional[int] = None) -> None:
         """The federation traffic a real transport would move for the
         simulated rounds: the model down to each participant and one
-        update back from each survivor, on the comm counter series."""
+        update back from each survivor, on the comm counter series.
+        Uplink bytes follow the codec (its exact encoded size), and a
+        compressed run also counts ``comm.raw_bytes`` (fp32) beside
+        ``comm.compressed_bytes``.  ``uploads`` defaults to the cohort;
+        dispatch rounds pass the realized count, the fused drivers the
+        expectation, as the JAX package does."""
         t = self.metrics.telemetry
         down = cohort * rounds
         up = down if uploads is None else uploads
@@ -442,8 +532,13 @@ class FedAvgSimulation:
         t.inc("comm.sent_bytes", self._model_nbytes * down,
               msg_type="S2C_SYNC_MODEL")
         t.inc("comm.recv_msgs", up, msg_type="C2S_SEND_MODEL")
-        t.inc("comm.recv_bytes", self._model_nbytes * up,
+        t.inc("comm.recv_bytes", self._enc_nbytes * up,
               msg_type="C2S_SEND_MODEL")
+        if self._codec is not None:
+            t.inc("comm.raw_bytes", self._model_nbytes * up,
+                  msg_type="C2S_SEND_MODEL")
+            t.inc("comm.compressed_bytes", self._enc_nbytes * up,
+                  msg_type="C2S_SEND_MODEL")
 
     @staticmethod
     def _train_row(metrics: dict, round_idx: int) -> dict:
@@ -593,9 +688,12 @@ class FedAvgSimulation:
                         {k: float(v[i]) for k, v in stacked.items()}, base + i)
                     self._count_degraded(out)
                     rows.append(out)
+            # the JAX engine draws a fused chunk's dropout on the device,
+            # out of the host's sight, and counts the expected uploads
+            cohort = len(chunk_ids[0])
             self._record_sim_comm(
-                len(chunk_ids[0]), rounds=n,
-                uploads=int(sum(r["participants"] for r in rows)))
+                cohort, rounds=n,
+                uploads=int(round(cohort * n * (1.0 - self.cfg.drop_prob))))
             if base + n - 1 in eval_rounds:
                 with self.metrics.span("eval"):
                     rows[-1].update(self.evaluate_global())

@@ -101,7 +101,7 @@ def build_north_star(
         torch.ones((C,), device=dev),
         np.arange(C, dtype=np.int32),
     )
-    state = ServerState(bundle.init(torch.Generator().manual_seed(0)), (), 0,
+    state = ServerState(bundle.init(PRNGKey(0)), (), 0,
                         PRNGKey(0))
     return round_fn, state, args, C * S * B * epochs * rounds_per_call
 
@@ -155,7 +155,7 @@ def build_fedllm(
         torch.ones((C,), device=dev),
         np.arange(C, dtype=np.int32),
     )
-    state = ServerState(bundle.init(torch.Generator().manual_seed(0)), (), 0,
+    state = ServerState(bundle.init(PRNGKey(0)), (), 0,
                         PRNGKey(0))
     # exact matmul FLOP accounting, fwd+bwd = 3x fwd (2 FLOPs per
     # multiply-add; the embedding lookup is free, the weight-tied head is a

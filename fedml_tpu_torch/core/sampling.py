@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.core import rng as rnglib
+from fedml_tpu_torch.utils.topk import top_k_indices
 
 _SAMPLE_STREAM = 0x5A11
 _DROP_STREAM = 0x0D0D
@@ -62,14 +63,15 @@ def eligible_participation_mask(key: rnglib.Key, round_idx: int,
                                 num_per_round: int) -> torch.Tensor:
     """Uniform draw of ``min(num_per_round, #eligible)`` distinct clients
     among ``participation > 0``, as a mask: top-K over uniform scores
-    under ``fold_in(fold_in(key, round), 0x5A11)``.  Top-K over iid
-    uniform scores is a uniform K-subset, and it never comes up empty
-    while any client is eligible."""
+    under ``fold_in(fold_in(key, round), 0x5A11)``, the lower index first
+    where scores tie (``jax.lax.top_k``'s rule).  Top-K over iid uniform
+    scores is a uniform K-subset, and it never comes up empty while any
+    client is eligible."""
     k = rnglib.fold_in(rnglib.fold_in(key, round_idx), _SAMPLE_STREAM)
     num = min(int(num_per_round), int(participation.shape[0]))
     scores = rnglib.uniform(k, participation.shape, participation.device)
     scores = torch.where(participation > 0, scores, torch.full_like(scores, -1.0))
-    idx = torch.topk(scores, num).indices
+    idx = top_k_indices(scores, num)
     mask = torch.zeros_like(participation)
     mask[idx] = 1.0
     # ineligible slots can only be picked when eligible < K; strip them

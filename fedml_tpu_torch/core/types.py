@@ -8,13 +8,14 @@ duplicates out of losses and counts).  ``device_resident_pack`` puts a
 pack on a torch device once for a whole run.
 
 The packed bytes are identical to the JAX package's for the same
-inputs.  The row gather is numpy fancy indexing here; the threaded C++
-gather of ``fedml_tpu/native/packer.cpp`` is not ported yet.
+inputs.  The row gather is the threaded C++ one of ``native/packer.cpp``
+(numpy's ``take`` where no compiler exists; the bytes are the same).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,6 +72,27 @@ class ClientBatches:
     num_samples: np.ndarray
 
 
+# reusable gather targets for fixed-geometry round loops: one buffer per
+# role tag per thread, replaced when the requested geometry changes
+_pack_buffer_cache = threading.local()
+
+
+def _gather_target(tag: str, shape, dtype, reuse: bool) -> Optional[np.ndarray]:
+    """The cached host buffer for ``tag`` (x and y never share one) at
+    this shape and dtype, or None without ``reuse``.  Thread-local, so
+    two threads packing at once get distinct buffers."""
+    if not reuse:
+        return None
+    cache = getattr(_pack_buffer_cache, "bufs", None)
+    if cache is None:
+        cache = _pack_buffer_cache.bufs = {}
+    shape, dtype = tuple(shape), np.dtype(dtype)
+    buf = cache.get(tag)
+    if buf is None or buf.shape != shape or buf.dtype != dtype:
+        buf = cache[tag] = np.empty(shape, dtype)
+    return buf
+
+
 def pack_clients(
     dataset: FedDataset,
     client_ids: Sequence[int],
@@ -78,13 +100,21 @@ def pack_clients(
     *,
     steps_per_epoch: Optional[int] = None,
     seed: int = 0,
+    reuse_buffers: bool = False,
 ) -> ClientBatches:
     """Pack the named clients' train shards into one fixed-shape block.
 
     Heterogeneous client sizes are resolved by wrapping indices
     (np.resize) up to a common ``steps_per_epoch * batch_size`` length;
     the mask marks only the first ``n_c`` slots per client as real.
+
+    ``reuse_buffers=True`` gathers into cached host buffers instead of
+    fresh allocations.  Only safe when the caller has consumed the pack
+    (copied it to the device) before the next same-shape call: that call
+    OVERWRITES the arrays returned here.
     """
+    from fedml_tpu_torch.native import gather_rows
+
     counts = [len(dataset.train_client_idx[c]) for c in client_ids]
     if steps_per_epoch is None:
         steps_per_epoch = max(1, int(np.ceil(max(max(counts), 1) / batch_size)))
@@ -112,10 +142,15 @@ def pack_clients(
             mask[k, : min(n, total)] = 1.0
             ns[k] = min(n, total)
 
-    rows = wrapped_all.reshape(-1)
-    x = dataset.train_x[rows].reshape(
-        K, steps_per_epoch, batch_size, *dataset.train_x.shape[1:])
-    y = dataset.train_y[rows].reshape(
+    # one row gather per array straight into the packed block
+    feat_shape = dataset.train_x.shape[1:]
+    x_out = _gather_target("x", (K * total, *feat_shape), dataset.train_x.dtype,
+                           reuse_buffers)
+    x = gather_rows(dataset.train_x, wrapped_all, x_out).reshape(
+        K, steps_per_epoch, batch_size, *feat_shape)
+    y_out = _gather_target("y", (K * total, *dataset.train_y.shape[1:]),
+                           dataset.train_y.dtype, reuse_buffers)
+    y = gather_rows(dataset.train_y, wrapped_all, y_out).reshape(
         K, steps_per_epoch, batch_size, *dataset.train_y.shape[1:])
     return ClientBatches(
         x=x, y=y, mask=mask.reshape(K, steps_per_epoch, batch_size),
@@ -137,9 +172,15 @@ def device_resident_pack(
     Returns ``((x, y, mask, num_samples) tensors on device, host
     num_samples)``.  The pack's base order carries no randomness (the
     local update re-permutes every epoch), so one copy serves every
-    round of a resident cohort."""
+    round of a resident cohort.
+
+    Off the CPU the host buffers are reused (``reuse_buffers``): the copy
+    to the card has finished with them when ``.to`` returns.  On the CPU
+    ``torch.from_numpy`` aliases the pack, so a reused buffer would be
+    overwritten under a cached block."""
     pack = pack_clients(dataset, ids, batch_size,
-                        steps_per_epoch=steps_per_epoch, seed=seed)
+                        steps_per_epoch=steps_per_epoch, seed=seed,
+                        reuse_buffers=torch.device(device).type != "cpu")
     args = tuple(
         torch.from_numpy(np.ascontiguousarray(a)).to(device)
         for a in (pack.x, pack.y, pack.mask, pack.num_samples)

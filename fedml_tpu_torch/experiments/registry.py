@@ -2,7 +2,8 @@
 ``fedml_tpu/experiments/registry.py``).
 
 The port has the names its slices carry so far: datasets ``cifar10``,
-``shakespeare`` and ``fed_shakespeare``, model ``resnet56``.  Every other
+``shakespeare`` and ``fed_shakespeare``, models ``resnet56`` and ``lr``
+(logistic regression over any flattened input).  Every other
 name raises ``NotImplementedError`` naming the ROADMAP item that ports
 the rest of the JAX registry.
 """
@@ -107,7 +108,8 @@ def create_model(
     device: DeviceLike = None,
 ) -> ModelBundle:
     """The reference's (model, dataset) switch: ``resnet56`` (the
-    library-conv baseline, as the JAX registry's XLA-conv one)."""
+    library-conv baseline, as the JAX registry's XLA-conv one) and the
+    JAX registry's generic ``lr``."""
     img = image_size or (
         input_shape[0] if input_shape and len(input_shape) >= 2
         else (28 if dataset in ("mnist", "femnist") else 32)
@@ -116,4 +118,11 @@ def create_model(
         from fedml_tpu_torch.models.resnet import resnet56
 
         return resnet56(num_classes=num_classes, image_size=img, device=device)
+    if model == "lr":
+        import numpy as np
+
+        from fedml_tpu_torch.models.linear import logistic_regression
+
+        dim = int(np.prod(input_shape)) if input_shape else 784
+        return logistic_regression(dim, num_classes, device=device)
     raise _not_ported(f"model (on dataset {dataset!r})", model)

@@ -9,10 +9,12 @@ The config is the JAX package's ``ExperimentConfig``, flag for flag, plus
 reference's per-epoch CIFAR augmentation, ``--data_augmentation 1`` by
 default) and ``fedllm`` on one device (the transformer through
 ``FedAvgSimulation``); ``--checkpoint_every/--checkpoint_dir/--resume``
-(fedavg) and ``--crash_at_round`` with the JAX package's semantics.
-Every other algorithm, and the knobs whose machinery is not ported yet
-(``tp_degree``/``sp_degree``/``mesh``, ``compress``), raise
-``NotImplementedError`` naming their ROADMAP item.  ``--ci 1`` shrinks
+(fedavg), ``--crash_at_round`` with the JAX package's semantics, and
+``--compress/--compress_ef`` (update compression with error feedback)
+on fedavg.  Every other algorithm, and the knobs whose machinery is not
+ported yet (``tp_degree``/``sp_degree``/``mesh``), raise
+``NotImplementedError`` naming their ROADMAP item; so does
+``--compress`` on fedllm, which the JAX package ignores there.  ``--ci 1`` shrinks
 everything for smoke runs.  ``main`` writes ``<run_dir>/metrics.jsonl``
 through ``MetricsLogger``.
 """
@@ -183,8 +185,12 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
     if cfg.tp_degree > 1 or cfg.sp_degree > 1 or cfg.mesh or cfg.partition_rules:
         raise _not_ported("tp_degree/sp_degree/mesh (the multi-device engines)",
                           "queue A item 6: transformer and parallel")
-    if cfg.compress or cfg.compress_ef:
-        raise _not_ported("--compress/--compress_ef", "queue A item 2: compression")
+    if cfg.algorithm == "fedllm" and (cfg.compress or cfg.compress_ef):
+        # the JAX package's one-device fedllm path ignores these flags
+        # (ROADMAP queue C4); refusing beats training uncompressed silently
+        raise NotImplementedError(
+            "--compress/--compress_ef on fedllm: the JAX package's "
+            "one-device fedllm path does not compress (ROADMAP.md, queue C4)")
 
 
 # the drivers wired into CheckpointManager (the JAX package's FedAvg-engine
@@ -203,6 +209,7 @@ def _fedavg_config(cfg: ExperimentConfig, ds):
         lr=cfg.lr, momentum=cfg.momentum, weight_decay=cfg.wd,
         frequency_of_the_test=cfg.frequency_of_the_test, seed=cfg.seed,
         compute_dtype=cfg.compute_dtype or None, drop_prob=cfg.drop_prob,
+        compress_codec=cfg.compress or None, compress_ef=bool(cfg.compress_ef),
     )
 
 

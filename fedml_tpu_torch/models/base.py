@@ -20,17 +20,24 @@ the new ``batch_stats``.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
+
+from fedml_tpu_torch.core import rng as rnglib
 
 Variables = Dict[str, Dict[str, torch.Tensor]]
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal");
 # the constant is the std of a unit normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
+# the order in which flax modules create their parameters in one scope
+# (Dense/Conv: kernel, bias; BatchNorm/LayerNorm: scale, bias)
+_CREATION_ORDER = {"kernel": 0, "embedding": 0, "scale": 0, "bias": 1}
 
 
 def meta_param(*shape: int) -> nn.Parameter:
@@ -44,26 +51,67 @@ def name_state_owners(module: nn.Module) -> None:
         m.state_prefix = f"{name}." if name else ""
 
 
-def _init_leaf(name: str, shape, generator: torch.Generator) -> torch.Tensor:
-    """flax's initializers by leaf name: conv/dense ``kernel`` lecun-normal
-    (fan-in = every axis but the last), ``embedding`` flax's
-    ``default_embed_init`` (an untruncated normal, variance_scaling(1,
-    "fan_in", out_axis=0): fan-in = every axis but the first, so std
-    ``1/√E`` for a ``[V, E]`` table), ``bias``/``mean`` zeros,
-    ``scale``/``var`` ones."""
+def fold_in_static(key: rnglib.Key, parts: Sequence) -> rnglib.Key:
+    """flax's ``_fold_in_static``: fold the first 4 bytes (big-endian) of
+    the SHA-1 of the scope names and rng counter into ``key`` (no
+    separators: ``flax_fix_rng_separator`` is off by default)."""
+    if not parts:
+        return key
+    m = hashlib.sha1()
+    for x in parts:
+        if isinstance(x, str):
+            m.update(x.encode("utf-8"))
+        else:
+            m.update(int(x).to_bytes((int(x).bit_length() + 7) // 8, "big"))
+    return rnglib.fold_in(key, int.from_bytes(m.digest()[:4], "big"))
+
+
+def param_keys(key: rnglib.Key, names: Sequence[str]) -> Dict[str, rnglib.Key]:
+    """The key flax's ``init`` hands each parameter's initializer: the
+    root key folded with the parameter's scope path (``Bottleneck_3``,
+    ``Conv_1``) and that scope's ``params`` counter, which counts the
+    scope's parameters in creation order from 1."""
+    scopes: Dict[Tuple[str, ...], list] = {}
+    for name in names:
+        *path, leaf = name.split(".")
+        if leaf not in _CREATION_ORDER:
+            raise ValueError(f"no flax creation order for parameter {name!r}")
+        scopes.setdefault(tuple(path), []).append(name)
+    keys = {}
+    for path, members in scopes.items():
+        members.sort(key=lambda n: _CREATION_ORDER[n.rsplit(".", 1)[-1]])
+        for counter, name in enumerate(members, start=1):
+            keys[name] = fold_in_static(key, (*path, counter))
+    return keys
+
+
+def _fan_in(shape, in_axis: int, out_axis: int) -> float:
+    """``jax.nn.initializers._compute_fans``'s fan-in, in its float steps."""
+    receptive = math.prod(shape) / shape[in_axis] / shape[out_axis]
+    return shape[in_axis] * receptive
+
+
+def _init_leaf(name: str, shape, key, device) -> torch.Tensor:
+    """flax's initializers by leaf name, in float32 on ``device``: conv/dense
+    ``kernel`` lecun-normal (``truncated_normal(-2, 2)`` times
+    ``√(1/fan_in)/0.8796…``, fan-in = every axis but the last), ``embedding``
+    flax's ``default_embed_init`` (``normal`` times ``√(1/fan_in)``, with
+    in and out axis 0: fan-in = every axis but the first), ``bias``/``mean``
+    zeros, ``scale``/``var`` ones."""
     leaf = name.rsplit(".", 1)[-1]
+    f32 = np.float32
+    shape = tuple(int(s) for s in shape)
     if leaf == "kernel":
-        std = math.sqrt(1.0 / math.prod(shape[:-1])) / _TRUNC_STD
-        t = torch.empty(shape)
-        return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std,
-                                     generator=generator)
+        variance = f32(1.0 / _fan_in(shape, -2, -1))
+        std = f32(np.sqrt(variance)) / f32(_TRUNC_STD)
+        return rnglib.truncated_normal(key, -2.0, 2.0, shape, device) * float(std)
     if leaf == "embedding":
-        std = math.sqrt(1.0 / math.prod(shape[1:]))
-        return torch.randn(shape, generator=generator) * std
+        variance = f32(1.0 / _fan_in(shape, 0, 0))
+        return rnglib.normal(key, shape, device) * float(f32(np.sqrt(variance)))
     if leaf in ("bias", "mean"):
-        return torch.zeros(shape)
+        return torch.zeros(shape, device=device)
     if leaf in ("scale", "var"):
-        return torch.ones(shape)
+        return torch.ones(shape, device=device)
     raise ValueError(f"no initializer for variable {name!r}")
 
 
@@ -93,13 +141,19 @@ class ModelBundle:
     def __post_init__(self):
         name_state_owners(self.module)
 
-    def init(self, generator: torch.Generator) -> Variables:
-        """Fresh variables drawn on the CPU from ``generator`` (so a seed
-        gives the same model on every device), then moved to ``device``."""
+    def init(self, key: rnglib.Key) -> Variables:
+        """The variables ``flax`` ``init`` draws from the threefry ``key``
+        (``PRNGKey(seed)``) for the same module, bit for bit: each
+        parameter from its own key (``param_keys``).  Drawn on ``device``:
+        the draws are integer and correctly rounded float arithmetic, the
+        same bits on the CPU and the card, and the card draws the bench
+        transformer's 236M values far faster than the CPU."""
+        names = [n for n, _ in self.module.named_parameters()]
+        keys = param_keys(key, names)
         out = {"params": {
-            n: _init_leaf(n, p.shape, generator).to(self.device)
+            n: _init_leaf(n, p.shape, keys[n], self.device)
             for n, p in self.module.named_parameters()}}
-        stats = {n: _init_leaf(n, b.shape, generator).to(self.device)
+        stats = {n: _init_leaf(n, b.shape, None, self.device)
                  for n, b in self.module.named_buffers()}
         if stats:
             out["batch_stats"] = stats

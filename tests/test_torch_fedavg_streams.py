@@ -23,6 +23,7 @@ import torch
 import fedml_tpu.algorithms.fedavg as jfedavg
 import fedml_tpu.core.client as jclient
 import fedml_tpu.core.robust as jrobust
+import fedml_tpu.core.sampling as jsampling
 import fedml_tpu.data.augment as jaugment
 from fedml_tpu.data.synthetic import synthetic_classification as jsynthetic
 from fedml_tpu.models.base import ModelBundle as JBundle
@@ -38,7 +39,7 @@ from fedml_tpu_torch.algorithms.fedavg import (
 )
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
-from fedml_tpu_torch.core.sampling import inject_dropout
+from fedml_tpu_torch.core.sampling import eligible_participation_mask, inject_dropout
 from fedml_tpu_torch.data.augment import cifar_augment, make_image_augment
 from fedml_tpu_torch.data.synthetic import synthetic_classification
 from fedml_tpu_torch.models.convert import from_jax_variables, to_jax_variables
@@ -368,3 +369,57 @@ def test_local_update_tracks_float64_where_xla_float32_drifts(setup, tmp_path):
 
     assert err(to_jax_variables(tvars)) < 1e-5
     assert err(jvars) > 1e-3  # the drift this test documents
+
+
+@pytest.mark.parametrize("round_idx", [2273, 5032, 4104])
+def test_eligible_mask_breaks_score_ties_as_jax(round_idx):
+    """Under ``PRNGKey(0)`` with 4096 eligible clients and K 2048, two
+    uniform scores tie across the K-th place in these rounds; JAX's
+    ``top_k`` keeps the lower index, and so must the port (``torch.topk``
+    kept the higher one in rounds 2273 and 5032)."""
+    n, k = 4096, 2048
+    part = np.ones(n, np.float32)
+    want = jsampling.eligible_participation_mask(jax.random.PRNGKey(0), round_idx,
+                                                 jnp.asarray(part), k)
+    got = eligible_participation_mask(rnglib.PRNGKey(0), round_idx,
+                                      torch.from_numpy(part), k)
+    key = rnglib.fold_in(rnglib.fold_in(rnglib.PRNGKey(0), round_idx), 0x5A11)
+    scores = np.sort(rnglib.uniform(key, (n,)).numpy())[::-1]
+    assert scores[k - 1] == scores[k]  # the tie sits on the boundary
+    assert np.array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("driver", ["run", "run_fused", "run_fused_sampled"])
+def test_comm_counters_match_jax_under_dropout(driver):
+    """Both engines emit the same ``comm.*`` series at ``drop_prob > 0``:
+    the dispatch loop counts the realized uploads, the fused drivers the
+    expectation ``round(cohort · rounds · (1 − drop_prob))`` per chunk."""
+    from fedml_tpu.core.metrics import MetricsLogger as JMetricsLogger
+    from fedml_tpu.models.linear import logistic_regression as jlogistic
+    from fedml_tpu.obs.telemetry import Telemetry as JTelemetry
+    from fedml_tpu_torch.core.metrics import MetricsLogger
+    from fedml_tpu_torch.models.linear import logistic_regression
+    from fedml_tpu_torch.obs.telemetry import Telemetry
+
+    kw = dict(num_train=240, num_test=40, input_shape=(16,), num_classes=4,
+              num_clients=6, seed=0)
+    per_round = 6 if driver == "run_fused" else 3
+    cfg = dict(num_clients=6, clients_per_round=per_round, comm_rounds=5,
+               batch_size=16, lr=0.1, frequency_of_the_test=2, seed=2, drop_prob=0.3)
+    jsim = jfedavg.FedAvgSimulation(jlogistic(16, 4), jsynthetic(**kw),
+                                    jfedavg.FedAvgConfig(**cfg),
+                                    metrics=JMetricsLogger(telemetry=JTelemetry()))
+    sim = FedAvgSimulation(logistic_regression(16, 4, device="cpu"),
+                           synthetic_classification(**kw), FedAvgConfig(**cfg),
+                           device="cpu", metrics=MetricsLogger(telemetry=Telemetry()))
+    getattr(jsim, driver)()
+    getattr(sim, driver)()
+
+    def comm(snapshot):
+        return {k: v for k, v in snapshot["counters"].items() if k.startswith("comm.")}
+
+    got, want = comm(sim.metrics.telemetry.snapshot()), comm(jsim.metrics.telemetry.snapshot())
+    assert got == want and got["comm.recv_msgs{msg_type=C2S_SEND_MODEL}"] > 0
+    if driver != "run":  # the expectation, not the realized count
+        assert got["comm.recv_msgs{msg_type=C2S_SEND_MODEL}"] != sum(
+            r["participants"] for r in sim.history)

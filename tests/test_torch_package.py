@@ -41,6 +41,9 @@ import tempfile
 import fedml_tpu_torch.bench  # noqa: F401  (imported so the check below covers it)
 import fedml_tpu_torch.core.checkpoint  # noqa: F401
 import fedml_tpu_torch.data.augment  # noqa: F401
+import fedml_tpu_torch.compress  # noqa: F401
+import fedml_tpu_torch.models.linear  # noqa: F401
+import fedml_tpu_torch.native  # noqa: F401
 from fedml_tpu_torch.experiments import run
 with tempfile.TemporaryDirectory() as d:
     out = run.main(["--algorithm", "fedllm", "--dataset", "fed_shakespeare",

@@ -21,6 +21,7 @@ from fedml_tpu.models.resnet import BasicBlock as JBasicBlock
 from fedml_tpu.models.resnet import Bottleneck as JBottleneck
 from fedml_tpu.models.resnet import CifarResNet as JCifarResNet
 from fedml_tpu.models.resnet_tpu import CifarResNetTPU as JCifarResNetTPU
+from fedml_tpu_torch.core.rng import PRNGKey
 from fedml_tpu_torch.core.tree import tree_cast_floats
 from fedml_tpu_torch.models.base import ModelBundle
 from fedml_tpu_torch.models.convert import from_jax_variables
@@ -92,7 +93,7 @@ def _flat(tree):
 def test_same_variable_tree_as_flax(variant, setup):
     jvars, _, _ = setup
     _, tb = _models(variant)
-    tvars = tb.init(torch.Generator().manual_seed(0))
+    tvars = tb.init(PRNGKey(0))
     for coll in ("params", "batch_stats"):
         jflat = _flat(jvars[coll])
         assert set(tvars[coll]) == set(jflat)

@@ -22,6 +22,7 @@ from fedml_tpu.core.losses import masked_softmax_ce as jmasked_ce
 from fedml_tpu.models.transformer import TransformerLM as JTransformerLM
 from fedml_tpu.ops.flash_attention import flash_attn_fn as jflash_attn_fn
 from fedml_tpu_torch.core.losses import masked_softmax_ce
+from fedml_tpu_torch.core.rng import PRNGKey
 from fedml_tpu_torch.core.tree import tree_cast_floats
 from fedml_tpu_torch.models.convert import from_jax_variables, to_jax_variables
 from fedml_tpu_torch.models.transformer import transformer_lm
@@ -52,7 +53,7 @@ def setup():
 
 def test_converter_maps_the_flax_tree_leaf_for_leaf(setup):
     tv = from_jax_variables(setup["jvars"], device="cpu")
-    fresh = _bundle().init(torch.Generator().manual_seed(0))
+    fresh = _bundle().init(PRNGKey(0))
     assert set(tv) == {"params"}
     assert {k: tuple(t.shape) for k, t in tv["params"].items()} == {
         k: tuple(t.shape) for k, t in fresh["params"].items()}
@@ -130,7 +131,7 @@ def test_bf16_matches_the_jax_flash_model(setup):
 
 def test_sequence_longer_than_max_len_raises():
     bundle = _bundle()
-    variables = bundle.init(torch.Generator().manual_seed(0))
+    variables = bundle.init(PRNGKey(0))
     with pytest.raises(ValueError, match="max_len"):
         bundle.apply_eval(variables, torch.zeros(1, L + 1, dtype=torch.int32))
 
@@ -140,7 +141,7 @@ def test_embedding_init_is_flax_default_embed_init():
     fan_in, out_axis 0), within 5%, as flax draws it."""
     bundle = transformer_lm(vocab_size=512, embed_dim=64, num_heads=4,
                             num_layers=1, seq_len=256, device="cpu")
-    params = bundle.init(torch.Generator().manual_seed(1))["params"]
+    params = bundle.init(PRNGKey(1))["params"]
     for name in ("wte.embedding", "wpe.embedding"):
         t = params[name]
         assert abs(float(t.std()) * np.sqrt(64) - 1.0) < 0.05, name
