@@ -70,8 +70,9 @@ Phases, in order; any failure exits non-zero:
              variables, bit for bit.  Then ``experiments.run.main`` fedavg at
              a small cut with augmentation on and ``--checkpoint_every 1``.
 9. init    — the seeded init (flax's variables under ``PRNGKey(0)``) of
-             ResNet-56 and a small transformer drawn on the card, bitwise
-             against the same draw on the CPU.
+             ResNet-56, a small transformer and the zoo's models (the
+             LSTMs' orthogonal kernels: a host QR) drawn on the card,
+             bitwise against the same draw on the CPU.
 10. compress — [sim]'s configuration with the int8 codec and error
              feedback: ``run()``, crash + ``resume()`` and
              ``run_fused_sampled`` end bit-identical (variables and
@@ -84,6 +85,22 @@ Phases, in order; any failure exits non-zero:
              without a codec.
 11. pack   — the native row-gather packer must have built and loaded; the
              pack time of a 10 x 1536-image cohort, native and numpy.
+12. zoo    — the cross-device zoo at full width through
+             ``experiments/run.py::run_experiment`` on the card: lr on mnist,
+             cnn (CNN_DropOut) on femnist, resnet18_gn on fed_cifar100, the
+             2xLSTM(256) on shakespeare and fed_shakespeare, the LSTM(670)
+             on stackoverflow_nwp and the multi-label lr on
+             stackoverflow_lr, each with the SGD lr and batch of the JAX
+             package's convergence record, 3 rounds of 10 sampled clients
+             (the first a warm-up); per pair the parameter count, median
+             round ms, samples/s (tokens/s for the LSTMs) and final test
+             metrics (precision and recall for stackoverflow_lr), all
+             finite.  Then one round of 2 clients x 2 steps per model from
+             one seed on the card in fp32 (TF32 off), within 1e-4 of each
+             leaf's largest magnitude of the same round on the CPU in
+             float64 (the CPU's fp32 round printed beside it), and the
+             dropout mask card == CPU bitwise.  No zoo path launches the
+             conv or flash kernel.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -96,6 +113,7 @@ path (device busy time, idle share, top kernels).
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -154,6 +172,27 @@ RNG_CASES = [
     ("cifar_augment_s6_64", "cifar_augment", 6, {"images": 64}),
 ]
 RNG_ANSWERS = "tests/threefry_known_answers.json"
+
+# the cross-device zoo through experiments/run.py: (dataset, model, batch, lr,
+# samples per client, tokens per sample or None, number of classes, one
+# example's shape).  SGD with no weight decay at the batch and lr of the JAX
+# package's convergence record for the pair (CONVERGENCE_r04_mnist_lr,
+# _r04_femnist_cnn, _r05_fed_cifar100, _r04_shakespeare_rnn,
+# _r05_stackoverflow_nwp); stackoverflow_lr has no record and takes
+# mnist-lr's.  Shards are cut to the samples column.
+ZOO = [
+    ("mnist", "lr", 10, 0.03, 100, None, 10, (784,)),
+    ("femnist", "cnn", 20, 0.03, 100, None, 62, (28, 28, 1)),
+    ("fed_cifar100", "resnet18_gn", 20, 0.1, 100, None, 100, (24, 24, 3)),
+    ("shakespeare", "rnn", 4, 1.0, 32, 80, 90, (80,)),
+    ("fed_shakespeare", "rnn", 4, 1.0, 32, 80, 90, (80,)),
+    ("stackoverflow_nwp", "rnn", 16, 0.31622776601683794, 64, 20, 10004, (20,)),
+    ("stackoverflow_lr", "lr", 10, 0.03, 64, None, 500, (10000,)),
+]
+ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 10, 3, 512
+# the card's fp32 round against the CPU's float64 one: max |Δ| of every leaf,
+# relative to the leaf's largest magnitude
+ZOO_ROUND_RTOL = 1e-4
 
 
 def augment_images(n: int):
@@ -962,9 +1001,197 @@ def phase_sim(step_ms: float):
     return rec
 
 
+def _zoo_bundle(dataset, model, classes, shape, device):
+    from fedml_tpu_torch.experiments.registry import create_model
+
+    return create_model(model, dataset, classes, input_shape=shape, device=device)
+
+
+def _zoo_round_data(dataset, batch, classes, shape, tokens, seed=0):
+    """A 2 clients x 2 steps block of the pair's geometry from a numpy seed:
+    token ids, pixels or bags of words; labels, next tokens or multi-hot tags."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    lead = (2, 2, batch)
+    if tokens:
+        x = rng.randint(0, classes, (*lead, *shape)).astype(np.int32)
+    else:
+        x = rng.standard_normal((*lead, *shape)).astype(np.float32)
+    if dataset == "stackoverflow_lr":
+        y = (rng.rand(*lead, classes) < 0.01).astype(np.float32)
+    elif dataset in ("fed_shakespeare", "stackoverflow_nwp"):
+        y = rng.randint(0, classes, (*lead, *shape)).astype(np.int32)
+    else:
+        y = rng.randint(0, classes, lead).astype(np.int32)
+    mask = np.ones(lead, np.float32)
+    mask[1, 1, batch // 2:] = 0.0
+    return x, y, mask, mask.sum((1, 2)), np.ones(2, np.float32), np.arange(2)
+
+
+def _zoo_round(dataset, model, batch, lr, classes, shape, tokens, device,
+               float64=False):
+    """One make_round_fn round of 2 clients x 2 steps on ``device`` from
+    PRNGKey(0)'s init (cast to float64 with the float inputs, the losses
+    staying float32 as in JAX, with ``float64``); returns the variables,
+    the metrics, the round function, its state and arguments."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import ServerState, make_round_fn
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.experiments.registry import task_loss_for_dataset
+
+    bundle = _zoo_bundle(dataset, model, classes, shape, device)
+    lu = make_local_update(bundle, make_client_optimizer("sgd", lr), 1,
+                           task_loss_for_dataset(dataset))
+    round_fn = make_round_fn(lu, device=device)
+    data = _zoo_round_data(dataset, batch, classes, shape, tokens)
+    args = tuple(torch.from_numpy(a).to(device) for a in data[:5]) + (data[5],)
+    variables = bundle.init(PRNGKey(0))
+    if float64:
+        variables = {c: {k: v.double() for k, v in d.items()} for c, d in variables.items()}
+        if args[0].is_floating_point():
+            args = (args[0].double(), *args[1:])
+    state = ServerState(variables, (), 0, PRNGKey(1))
+    new, metrics = round_fn(state, *args)
+    return new.variables, metrics, round_fn, state, args
+
+
+def phase_zoo(profile: bool, device: str = "cuda"):
+    """The cross-device zoo: every (dataset, model) pair of ZOO through
+    ``experiments/run.py::run_experiment`` at full width on the default
+    device (the card), ZOO_ROUNDS rounds of ZOO_PER_ROUND sampled clients
+    (the first a warm-up); then per model one make_round_fn round on the
+    card in fp32 (TF32 off) held within ZOO_ROUND_RTOL of the same round on
+    the CPU in float64, and the dropout masks card == CPU bit for bit.  No zoo
+    path may launch the conv or flash kernel.  ``device`` "cpu" rehearses
+    the phase without a card (both sides then run on the CPU)."""
+    import statistics
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.models.base import Dropout
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rec = {}
+    reset_launches()
+    for dataset, model, batch, lr, cap, tokens, classes, shape in ZOO:
+        cfg = run.ExperimentConfig(
+            algorithm="fedavg", dataset=dataset, model=model, batch_size=batch, lr=lr,
+            wd=0.0, client_num_in_total=ZOO_CLIENTS, client_num_per_round=ZOO_PER_ROUND,
+            comm_round=ZOO_ROUNDS, frequency_of_the_test=ZOO_ROUNDS,
+            max_samples_per_client=cap, max_test_samples=ZOO_TEST,
+            device="" if device == "cuda" else device)
+        t0 = time.perf_counter()
+        out = run.run_experiment(cfg, log_fn=None)
+        sync()
+        secs = time.perf_counter() - t0
+        hist = out["history"]
+        final = hist[-1]
+        round_ms = statistics.median(1e3 * r["time_round"] for r in hist[1:])
+        # a per-position task counts tokens, a per-sequence one samples
+        per_token = dataset in ("fed_shakespeare", "stackoverflow_nwp")
+        samples = statistics.median(r["count"] / (tokens if per_token else 1)
+                                    for r in hist[1:])
+        params = sum(p.numel() for p in
+                     _zoo_bundle(dataset, model, classes, shape, "meta").module.parameters())
+        tag = f"{dataset}+{model}"
+        r = {"params": params, "round_ms": round_ms, "samples_per_round": samples,
+             "samples_per_s": 1e3 * samples / round_ms, "run_s": secs,
+             "final": {k: v for k, v in final.items() if k.startswith(("test_", "train_"))}}
+        if tokens:
+            r["tokens_per_s"] = r["samples_per_s"] * tokens
+        finite = all(math.isfinite(v) for v in r["final"].values())
+        extra = (f", {r['tokens_per_s']:.1f} tokens/s" if tokens else "")
+        pr = (f" precision {final['test_precision']:.4f} recall {final['test_recall']:.4f}"
+              if "test_precision" in final else "")
+        print(f"[zoo] {tag}: {params} params, {len(hist)} rounds x {cfg.client_num_per_round} "
+              f"clients (batch {batch}, sgd lr {lr:g}, <= {cap} samples each) in {secs:.2f} s; "
+              f"median round {round_ms:.1f} ms after a warm-up, {r['samples_per_s']:.1f} "
+              f"samples/s{extra}; train_loss {final['train_loss']:.4f} test_loss "
+              f"{final['test_loss']:.4f} test_acc {final['test_acc']:.4f}{pr}; finite {finite}")
+        if not finite or final["test_count"] <= 0:
+            fail(f"zoo {tag}: {final}")
+        if dataset == "stackoverflow_lr" and "test_precision" not in final:
+            fail("zoo stackoverflow_lr: no precision/recall in the evaluation record")
+        rec[tag] = r
+    seen = read_launches()
+    if any(seen.values()):
+        fail(f"a zoo path launched a kernel of the JAX package's Pallas paths: {seen}")
+
+    # the card against the CPU, one round per model, one seed: the card in
+    # fp32 is held to the CPU's float64 round, which the CPU's own fp32
+    # round can miss by more than the card does (resnet18_gn at lr 0.1: the
+    # CPU's fp32 round ends 2.2e-3 of a leaf's largest magnitude from
+    # float64 on near-zero GroupNorm biases, the card's 7.9e-5; PERF.md)
+    def rel_diff(a, b):
+        worst, worst_abs = 0.0, 0.0
+        for coll in b:
+            for k, v in b[coll].items():
+                d = (a[coll][k].cpu().double() - v.double()).abs().max().item()
+                worst_abs = max(worst_abs, d)
+                worst = max(worst, d / max(v.abs().max().item(), 1e-30))
+        return worst, worst_abs
+
+    models = {}
+    for dataset, model, batch, lr, cap, tokens, classes, shape in ZOO:
+        key = (model, dataset if model in ("rnn", "lr") else "")
+        models.setdefault(key, (dataset, model, batch, lr, classes, shape, tokens))
+    for dataset, model, batch, lr, classes, shape, tokens in models.values():
+        spec = (dataset, model, batch, lr, classes, shape, tokens)
+        card, cm, round_fn, state, args = _zoo_round(*spec, device)
+        host, hm, *_ = _zoo_round(*spec, "cpu")
+        ref, _, *_ = _zoo_round(*spec, "cpu", float64=True)
+        worst, worst_abs = rel_diff(card, ref)
+        host_ref, _ = rel_diff(host, ref)
+        card_host, card_host_abs = rel_diff(card, host)
+        loss_c, loss_h = float(cm["loss_sum"]), float(hm["loss_sum"])
+        tag = f"{model}/{dataset}"
+        print(f"[zoo] {tag}: one round of 2 clients x 2 steps (fp32, TF32 off): card vs "
+              f"cpu float64 max |Δ| {worst_abs:.3g}, / max |leaf| {worst:.3g}; card vs cpu "
+              f"fp32 max |Δ| {card_host_abs:.3g}, / max |leaf| {card_host:.3g}; cpu fp32 "
+              f"vs float64 / max |leaf| {host_ref:.3g}; loss_sum {loss_c:.6f} vs {loss_h:.6f}")
+        if not worst <= ZOO_ROUND_RTOL or not math.isfinite(loss_c):
+            fail(f"zoo {tag}: the card's round is not the CPU's float64 one ({worst:.3g})")
+        rec[f"round {tag}"] = {"card_vs_f64": worst, "card_vs_f64_abs": worst_abs,
+                               "card_vs_cpu": card_host, "card_vs_cpu_abs": card_host_abs,
+                               "cpu_vs_f64": host_ref, "loss_sum": [loss_c, loss_h]}
+        if profile and device == "cuda":
+            prof = profile_round(round_fn, state, args)
+            prof["launches_per_step"] = prof["kernel_launches"] / 4
+            if tokens:
+                prof["launches_per_timestep"] = prof["launches_per_step"] / tokens
+            print(f"[zoo] {tag}: {prof['launches_per_step']:.0f} kernel launches per "
+                  "training step (a 2 x 2 round's launches / 4, aggregation included)"
+                  + (f", {prof['launches_per_timestep']:.1f} per timestep" if tokens else ""))
+            rec[f"round {tag}"]["profile"] = prof
+        del card, host, state, args, round_fn
+    # the CNN's dropout masks, card against CPU, bit for bit
+    drop = Dropout(0.25)
+    drop.state_prefix = "Dropout_0."  # CNNDropOut's first dropout scope
+    x = torch.randn(20, 12, 12, 64, generator=torch.Generator().manual_seed(0)) + 3.0
+    key = rnglib.fold_in(rnglib.PRNGKey(5), 1)
+    a = drop(x.to(device), True, key).cpu()
+    b = drop(x, True, key)
+    same = torch.equal(a, b) and torch.equal(a == 0, b == 0)
+    print(f"[zoo] dropout 0.25 over a [20, 12, 12, 64] activation: card == cpu bitwise "
+          f"{same} (kept {(b != 0).float().mean().item():.4f})")
+    if not same:
+        fail("zoo: the card's dropout mask is not the CPU's")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return rec
+
+
 def phase_init():
     """The seeded init (flax's model under PRNGKey(s)) drawn on the card
-    against the same draw on the CPU, bit for bit."""
+    against the same draw on the CPU, bit for bit: ResNet-56, a small
+    transformer and the zoo's models (the LSTMs' orthogonal kernels
+    included)."""
     import torch
 
     from fedml_tpu_torch.core.rng import PRNGKey
@@ -972,11 +1199,15 @@ def phase_init():
     from fedml_tpu_torch.models.transformer import transformer_lm
 
     rec = {}
+    # the zoo's models, each once (shakespeare's LSTM is fed_shakespeare's)
+    zoo = [(f"{model}/{dataset}", functools.partial(_zoo_bundle, dataset, model, c, shp))
+           for dataset, model, _, _, _, _, c, shp in ZOO
+           if dataset not in ("shakespeare", "mnist")]
     for name, make in (
             ("resnet56_tpu", lambda dev: resnet56_tpu(device=dev)),
             ("transformer_w256_l2", lambda dev: transformer_lm(
                 vocab_size=1024, embed_dim=256, num_heads=4, num_layers=2,
-                seq_len=128, device=dev))):
+                seq_len=128, device=dev)), *zoo):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         card = make("cuda").init(PRNGKey(0))
@@ -1342,6 +1573,7 @@ def main() -> int:
     init_rec = phase_init()
     compress_rec = phase_compress()
     pack_rec = phase_pack()
+    zoo_rec = phase_zoo(args.profile)
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -1392,7 +1624,7 @@ def main() -> int:
                        "flash_cases": flash_cases, "main": main_rec,
                        "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
                        "sim": sim_rec, "init": init_rec, "compress": compress_rec,
-                       "pack": pack_rec, "kernels": kernels}, f, indent=1)
+                       "pack": pack_rec, "zoo": zoo_rec, "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

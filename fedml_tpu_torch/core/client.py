@@ -219,6 +219,8 @@ def make_local_update(
                 flat = augment_fn(rnglib.fold_in(ek, n + 1),
                                   xs.reshape(n, *x.shape[2:]))
                 xs = flat.reshape(x.shape)
+            # the training metrics; a multi-label loss's precision/recall
+            # sums are evaluation metrics, as in the JAX local update
             sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
             for i in range(steps):
                 leaves = {k: params[k].detach().requires_grad_(True) for k in names}
@@ -265,10 +267,16 @@ def make_evaluator(bundle: ModelBundle, loss_fn: LossFn = masked_softmax_ce):
 
 
 def eval_summary(res) -> dict:
-    """Summed evaluator metrics → the test_{acc,loss,count} record."""
+    """Summed evaluator metrics → the test_{acc,loss,count} record, plus
+    ``test_precision``/``test_recall`` for a multi-label task
+    (``losses.masked_multilabel_bce``)."""
     count = float(res["count"])
-    return {
+    out = {
         "test_acc": float(res["correct"]) / max(count, 1.0),
         "test_loss": float(res["loss_sum"]) / max(count, 1.0),
         "test_count": count,
     }
+    if "precision_sum" in res:
+        out["test_precision"] = float(res["precision_sum"]) / max(count, 1.0)
+        out["test_recall"] = float(res["recall_sum"]) / max(count, 1.0)
+    return out

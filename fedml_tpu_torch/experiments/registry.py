@@ -1,11 +1,13 @@
 """Model + dataset registries for the experiment entry points (subset of
 ``fedml_tpu/experiments/registry.py``).
 
-The port has the names its slices carry so far: datasets ``cifar10``,
-``shakespeare`` and ``fed_shakespeare``, models ``resnet56`` and ``lr``
-(logistic regression over any flattened input).  Every other
-name raises ``NotImplementedError`` naming the ROADMAP item that ports
-the rest of the JAX registry.
+The port has the names its slices carry so far: datasets ``mnist``,
+``cifar10``, ``femnist``, ``fed_cifar100``, ``shakespeare``,
+``fed_shakespeare``, ``stackoverflow_lr`` and ``stackoverflow_nwp``;
+models ``lr``, ``rnn``, ``cnn``, ``resnet18_gn`` and the CIFAR ResNets
+(``resnet20/32/44/56/110``).  Every other name raises
+``NotImplementedError`` naming the ROADMAP item that ports the rest of
+the JAX registry.
 """
 
 from __future__ import annotations
@@ -31,12 +33,27 @@ def load_data(
     partition_alpha: float = 0.5,
     seed: int = 0,
 ) -> FedDataset:
+    if dataset == "mnist":
+        from fedml_tpu_torch.data.mnist import load_mnist
+
+        return load_mnist(data_dir or "./data/mnist", num_clients,
+                          partition="power_law", seed=seed)
     if dataset == "cifar10":
         from fedml_tpu_torch.data.cifar import load_cifar10
 
         return load_cifar10(data_dir or "./data/cifar10", num_clients,
                             partition=partition_method,
                             partition_alpha=partition_alpha, seed=seed)
+    if dataset == "femnist":
+        from fedml_tpu_torch.data.emnist import load_femnist
+
+        return load_femnist(data_dir or "./data/FederatedEMNIST/datasets",
+                            num_clients, seed=seed)
+    if dataset == "fed_cifar100":
+        from fedml_tpu_torch.data.emnist import load_fed_cifar100
+
+        return load_fed_cifar100(data_dir or "./data/fed_cifar100/datasets",
+                                 seed=seed)
     if dataset == "shakespeare":
         from fedml_tpu_torch.data.shakespeare import load_shakespeare
 
@@ -47,16 +64,27 @@ def load_data(
 
         return load_fed_shakespeare(data_dir or "./data/fed_shakespeare/datasets",
                                     num_clients, seed=seed)
+    if dataset == "stackoverflow_lr":
+        from fedml_tpu_torch.data.stackoverflow import load_stackoverflow_lr
+
+        return load_stackoverflow_lr(data_dir or "./data/stackoverflow_lr",
+                                     num_clients, seed=seed)
+    if dataset == "stackoverflow_nwp":
+        from fedml_tpu_torch.data.stackoverflow import load_stackoverflow_nwp
+
+        return load_stackoverflow_nwp(data_dir or "./data/stackoverflow",
+                                      num_clients, seed=seed)
     raise _not_ported("dataset", dataset)
 
 
 def task_loss_for_dataset(dataset: str):
-    """Per-dataset task loss: masked softmax cross-entropy (the
-    multi-label BCE of ``stackoverflow_lr`` is not ported yet)."""
+    """Per-dataset task loss: the multi-label BCE (exact match, precision,
+    recall) for ``stackoverflow_lr``'s tag prediction, masked softmax
+    cross-entropy for every other dataset."""
     from fedml_tpu_torch.core import losses
 
     if dataset == "stackoverflow_lr":
-        raise _not_ported("loss of dataset", dataset)
+        return losses.masked_multilabel_bce
     return losses.masked_softmax_ce
 
 
@@ -107,18 +135,45 @@ def create_model(
     input_shape: Optional[tuple] = None,
     device: DeviceLike = None,
 ) -> ModelBundle:
-    """The reference's (model, dataset) switch: ``resnet56`` (the
-    library-conv baseline, as the JAX registry's XLA-conv one) and the
-    JAX registry's generic ``lr``."""
+    """The reference's (model, dataset) switch, in the JAX registry's
+    order; the CIFAR ResNets are the library-conv baselines, as the JAX
+    registry's XLA-conv ones."""
     img = image_size or (
         input_shape[0] if input_shape and len(input_shape) >= 2
         else (28 if dataset in ("mnist", "femnist") else 32)
     )
-    if model == "resnet56":
-        from fedml_tpu_torch.models.resnet import resnet56
+    if model == "lr" and dataset == "mnist":
+        from fedml_tpu_torch.models.linear import logistic_regression
 
-        return resnet56(num_classes=num_classes, image_size=img, device=device)
+        return logistic_regression(28 * 28, num_classes, device=device)
+    if model == "lr" and dataset == "stackoverflow_lr":
+        from fedml_tpu_torch.models.linear import logistic_regression
+
+        return logistic_regression(10000, num_classes, device=device)
+    if model == "rnn" and dataset in ("shakespeare", "fed_shakespeare"):
+        from fedml_tpu_torch.models.rnn import rnn_shakespeare
+
+        return rnn_shakespeare(seq_output=(dataset == "fed_shakespeare"),
+                               device=device)
+    if model == "rnn" and dataset == "stackoverflow_nwp":
+        from fedml_tpu_torch.models.rnn import rnn_stackoverflow
+
+        return rnn_stackoverflow(device=device)
+    if model == "cnn":
+        from fedml_tpu_torch.models.cnn import cnn_dropout
+
+        return cnn_dropout(only_digits=False, side=img, device=device)
+    if model == "resnet18_gn":
+        from fedml_tpu_torch.models.resnet_gn import resnet18_gn
+
+        return resnet18_gn(num_classes=num_classes, image_size=img, device=device)
+    if model in ("resnet56", "resnet110", "resnet20", "resnet32", "resnet44"):
+        from fedml_tpu_torch.models import resnet
+
+        return getattr(resnet, model)(num_classes=num_classes, image_size=img,
+                                      device=device)
     if model == "lr":
+        # generic: LR flattens any input shape
         import numpy as np
 
         from fedml_tpu_torch.models.linear import logistic_regression

@@ -3,12 +3,20 @@
     python -m fedml_tpu_torch.experiments.run --algorithm fedllm \
         --dataset fed_shakespeare --comm_round 10
 
+    python -m fedml_tpu_torch.experiments.main_fedavg --dataset femnist \
+        --model cnn --batch_size 20 --lr 0.03 --device cpu
+
 The config is the JAX package's ``ExperimentConfig``, flag for flag, plus
 ``--device`` ("" = the CUDA card, "cpu" = the CPU).  Ported so far:
-``fedavg`` (the FedAvg engine, ``resnet56`` on ``cifar10``, with the
-reference's per-epoch CIFAR augmentation, ``--data_augmentation 1`` by
-default) and ``fedllm`` on one device (the transformer through
-``FedAvgSimulation``); ``--checkpoint_every/--checkpoint_dir/--resume``
+``fedavg`` (the FedAvg engine over every (model, dataset) pair of
+``registry.py``: ``resnet56`` on ``cifar10`` with the reference's
+per-epoch CIFAR augmentation, ``--data_augmentation 1`` by default, and
+the cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
+``cnn`` on ``femnist``, ``resnet18_gn`` on ``fed_cifar100``, ``rnn`` on
+``shakespeare``, ``fed_shakespeare`` and ``stackoverflow_nwp`` — with the
+dataset's task loss; the multi-label one adds ``test_precision`` and
+``test_recall`` to the evaluation record) and ``fedllm`` on one device
+(the transformer through ``FedAvgSimulation``); ``--checkpoint_every/--checkpoint_dir/--resume``
 (fedavg), ``--crash_at_round`` with the JAX package's semantics, and
 ``--compress/--compress_ef`` (update compression with error feedback)
 on fedavg.  Every other algorithm, and the knobs whose machinery is not
@@ -271,7 +279,8 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
 
 def _augment_fn(cfg: ExperimentConfig, ds):
     """The reference's CIFAR-10 loader augments every epoch: crop (pad 4),
-    flip and Cutout(16), unless ``--data_augmentation 0``."""
+    flip and Cutout(16), unless ``--data_augmentation 0``.  fed_cifar100
+    trains unaugmented, as in the JAX package."""
     if cfg.data_augmentation and ds.train_x.ndim == 4 and cfg.dataset == "cifar10":
         from fedml_tpu_torch.data.augment import cifar_augment
 

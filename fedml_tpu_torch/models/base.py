@@ -14,7 +14,9 @@ averages ``batch_stats`` as visibly as ``params``.
 Train-mode BatchNorm does not mutate the module: each norm layer writes
 its new running statistics into the ``updates`` dict the forward is
 handed, under its own state names, and ``apply_train`` returns them as
-the new ``batch_stats``.
+the new ``batch_stats``.  A model with dropout (``needs_dropout_rng``)
+is also handed the step's threefry key, and each ``Dropout`` draws its
+mask from that key folded with its own scope name, as flax does.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from typing import Dict, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fedml_tpu_torch.core import rng as rnglib
@@ -38,6 +41,10 @@ _TRUNC_STD = 0.87962566103423978
 # the order in which flax modules create their parameters in one scope
 # (Dense/Conv: kernel, bias; BatchNorm/LayerNorm: scale, bias)
 _CREATION_ORDER = {"kernel": 0, "embedding": 0, "scale": 0, "bias": 1}
+# the hidden-side Dense scopes of flax's LSTMCell, whose kernels flax draws
+# with ``orthogonal()`` (the input side ``ii``/``if``/``ig``/``io`` is
+# lecun-normal like any Dense kernel)
+_RECURRENT_SCOPES = frozenset(("hi", "hf", "hg", "ho"))
 
 
 def meta_param(*shape: int) -> nn.Parameter:
@@ -91,16 +98,39 @@ def _fan_in(shape, in_axis: int, out_axis: int) -> float:
     return shape[in_axis] * receptive
 
 
+def _orthogonal(key, shape, device) -> torch.Tensor:
+    """``jax.nn.initializers.orthogonal()`` for a ``[rows, cols]`` kernel:
+    Q of the QR of a ``normal`` draw, times ``sign(diag(R))``.  The draw
+    runs on ``device``; the QR runs on the host in float32 through
+    scipy's LAPACK (``geqrf``/``orgqr``), the routines jax's CPU QR calls
+    through scipy, so Q is jax's bit for bit and the card's init is the
+    CPU's.  ``torch.linalg.qr`` is not used: it misses jax's Q by up to
+    ~1e-6 on the CPU, and on the card it would be cuSOLVER's."""
+    import scipy.linalg
+
+    rows, cols = shape
+    a = rnglib.normal(key, (cols, rows) if rows < cols else (rows, cols), device)
+    q, r = scipy.linalg.qr(a.cpu().numpy(), mode="economic")
+    q = (q * np.sign(np.diag(r))).astype(np.float32)
+    if rows < cols:
+        q = q.T
+    return torch.from_numpy(np.ascontiguousarray(q)).to(device)
+
+
 def _init_leaf(name: str, shape, key, device) -> torch.Tensor:
     """flax's initializers by leaf name, in float32 on ``device``: conv/dense
     ``kernel`` lecun-normal (``truncated_normal(-2, 2)`` times
-    ``√(1/fan_in)/0.8796…``, fan-in = every axis but the last), ``embedding``
-    flax's ``default_embed_init`` (``normal`` times ``√(1/fan_in)``, with
-    in and out axis 0: fan-in = every axis but the first), ``bias``/``mean``
-    zeros, ``scale``/``var`` ones."""
-    leaf = name.rsplit(".", 1)[-1]
+    ``√(1/fan_in)/0.8796…``, fan-in = every axis but the last), except an
+    LSTM cell's hidden-side kernels (scope ``hi``/``hf``/``hg``/``ho``),
+    which are orthogonal; ``embedding`` flax's ``default_embed_init``
+    (``normal`` times ``√(1/fan_in)``, with in and out axis 0: fan-in =
+    every axis but the first), ``bias``/``mean`` zeros, ``scale``/``var``
+    ones."""
+    *path, leaf = name.split(".")
     f32 = np.float32
     shape = tuple(int(s) for s in shape)
+    if leaf == "kernel" and path and path[-1] in _RECURRENT_SCOPES:
+        return _orthogonal(key, shape, device)
     if leaf == "kernel":
         variance = f32(1.0 / _fan_in(shape, -2, -1))
         std = f32(np.sqrt(variance)) / f32(_TRUNC_STD)
@@ -129,6 +159,48 @@ class Dense(nn.Module):
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
+class Embed(nn.Module):
+    """flax ``nn.Embed``: a ``[num_embeddings, features]`` table."""
+
+    def __init__(self, num_embeddings: int, features: int):
+        super().__init__()
+        self.embedding = meta_param(num_embeddings, features)
+
+    def forward(self, ids):
+        return F.embedding(ids.long(), self.embedding)
+
+    def attend(self, h):
+        """The weight-tied head: ``h @ embeddingᵀ``."""
+        return h @ self.embedding.to(h.dtype).T
+
+
+class Dropout(nn.Module):
+    """flax ``nn.Dropout(rate)``: in train mode, keep each element with
+    probability ``1 − rate`` and scale the kept ones by ``1/(1 − rate)``.
+
+    The mask is ``bernoulli(key, 1 − rate)`` (``core/rng.py``) under the
+    key flax's ``make_rng("dropout")`` gives this scope: the step key
+    folded with the scope path and the scope's rng counter 1.  The kept
+    values are divided by ``1 − rate`` held in a tensor: CUDA's division
+    by a Python scalar multiplies by the reciprocal and changes bits."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, train: bool, rng):
+        if not train or self.rate == 0.0:
+            return x
+        if rng is None:
+            raise ValueError(f"{self.state_prefix}Dropout in train mode needs "
+                             "the step key (ModelBundle.apply_train's rng)")
+        key = fold_in_static(rng, (*self.state_prefix[:-1].split("."), 1))
+        keep = 1.0 - self.rate
+        mask = rnglib.bernoulli(key, keep, x.shape, x.device)
+        return torch.where(mask, x / torch.tensor(keep, dtype=x.dtype, device=x.device),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 @dataclasses.dataclass
 class ModelBundle:
     """An ``nn.Module`` + its input spec + the device its variables live on."""
@@ -137,6 +209,8 @@ class ModelBundle:
     input_shape: Sequence[int]  # one example's shape, no batch dim
     device: torch.device
     input_dtype: torch.dtype = torch.float32
+    # the forward takes the step key (``rng=``) for its Dropout layers
+    needs_dropout_rng: bool = False
 
     def __post_init__(self):
         name_state_owners(self.module)
@@ -160,19 +234,21 @@ class ModelBundle:
         return out
 
     def _call(self, variables: Variables, x: torch.Tensor, train: bool,
-              updates: dict):
+              updates: dict, rng=None):
         state = {**variables["params"], **variables.get("batch_stats", {})}
-        return torch.func.functional_call(
-            self.module, state, (x,), {"train": train, "updates": updates})
+        kwargs = {"train": train, "updates": updates}
+        if self.needs_dropout_rng:
+            kwargs["rng"] = rng
+        return torch.func.functional_call(self.module, state, (x,), kwargs)
 
     def apply_train(self, variables: Variables, x: torch.Tensor,
                     rng=None) -> Tuple[torch.Tensor, Variables]:
         """Forward in train mode; returns (logits, updated variables).
         ``rng`` is the step's threefry key (``core/rng.py``), as the JAX
-        contract hands it; no ported model draws from it."""
-        del rng
+        contract hands it; a model with ``needs_dropout_rng`` draws its
+        dropout masks from it, the others ignore it."""
         updates: dict = {}
-        logits = self._call(variables, x, True, updates)
+        logits = self._call(variables, x, True, updates, rng)
         if "batch_stats" in variables:
             variables = {**variables,
                          "batch_stats": {**variables["batch_stats"], **updates}}

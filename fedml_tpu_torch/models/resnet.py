@@ -24,18 +24,24 @@ from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` without bias: NHWC input, HWIO ``kernel``,
-    explicit padding ``k // 2`` (even-centre windows at stride 2)."""
+    """flax ``nn.Conv``: NHWC input, HWIO ``kernel``, symmetric padding
+    ``padding`` (default ``k // 2``: flax's ``SAME`` at stride 1, and the
+    explicit ``k // 2`` of the ResNets at stride 2), a ``bias`` with
+    ``use_bias``."""
 
-    def __init__(self, cin: int, cout: int, k: int, stride: int = 1):
+    def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
+                 padding: Optional[int] = None, use_bias: bool = False):
         super().__init__()
         self.stride = stride
+        self.padding = k // 2 if padding is None else padding
         self.kernel = meta_param(k, k, cin, cout)
+        self.bias = meta_param(cout) if use_bias else None
 
     def forward(self, x):
         w = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.stride,
-                     padding=self.kernel.shape[0] // 2)
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
+                     padding=self.padding)
         return y.permute(0, 2, 3, 1)
 
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fedml_tpu_torch.models.base import Dense, ModelBundle, meta_param
+from fedml_tpu_torch.models.base import Dense, Embed, ModelBundle, meta_param
 from fedml_tpu_torch.ops.flash_attention import flash_attention, pick_block
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -61,21 +61,6 @@ class LayerNorm(nn.Module):
         dtype = torch.promote_types(
             torch.promote_types(x.dtype, self.scale.dtype), self.bias.dtype)
         return y.to(dtype)
-
-
-class Embed(nn.Module):
-    """flax ``nn.Embed``: a ``[num_embeddings, features]`` table."""
-
-    def __init__(self, num_embeddings: int, features: int):
-        super().__init__()
-        self.embedding = meta_param(num_embeddings, features)
-
-    def forward(self, ids):
-        return F.embedding(ids.long(), self.embedding)
-
-    def attend(self, h):
-        """The weight-tied head: ``h @ embeddingᵀ``."""
-        return h @ self.embedding.to(h.dtype).T
 
 
 class MultiHeadAttention(nn.Module):

@@ -158,7 +158,8 @@ _NOT_PORTED = (NotImplementedError, "ROADMAP")
       "--checkpoint_every", "1"], (SystemExit, "no checkpoint wiring")),
     # cifar10 augments now; cifar100's recipe waits for its loader
     (["--algorithm", "fedavg", "--dataset", "cifar100"], _NOT_PORTED),
-    (["--algorithm", "fedavg", "--dataset", "mnist", "--data_augmentation", "0"],
+    # mnist loads now; a model the zoo has not ported yet still refuses
+    (["--algorithm", "fedavg", "--dataset", "mnist", "--model", "mobilenet"],
      _NOT_PORTED),
 ], ids=["fedprox", "tp", "mesh", "compress", "checkpoint", "augment", "mnist"])
 def test_run_refuses_what_is_not_ported(tmp_path, extra, refusal):
