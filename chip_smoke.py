@@ -101,6 +101,19 @@ Phases, in order; any failure exits non-zero:
              float64 (the CPU's fp32 round printed beside it), and the
              dropout mask card == CPU bitwise.  No zoo path launches the
              conv or flash kernel.
+13. algos  — the FedAvg-engine family through ``experiments.run.main`` on
+             full-width ResNet-56 with ``--conv_variant kernel`` (bf16,
+             CIFAR-10 stand-in, 4 clients x 2 steps x 64, 2 rounds, a
+             checkpoint every round): fedavg, FedProx (mu 0 and 0.01),
+             FedOpt (sgd lr 1, adam, yogi), FedNova (momentum 0 and 0.9),
+             robust FedAvg under the backdoor (norm_diff_clipping, weak_dp,
+             median) and hierarchical (2 groups x 2 group rounds); per case
+             the round times, 19 conv launches per forward, the final test
+             accuracy and loss (and backdoor accuracy).  Held on the card:
+             FedProx mu 0 == FedAvg bitwise, FedOpt sgd lr 1 == FedAvg after
+             round 1 within 1e-6, FedNova momentum 0 (equal steps) == FedAvg
+             after round 1 within 1e-5, and the weak-DP noise of a (seed,
+             round, slot) card == CPU bitwise.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -190,6 +203,49 @@ ZOO = [
     ("stackoverflow_lr", "lr", 10, 0.03, 64, None, 500, (10000,)),
 ]
 ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 10, 3, 512
+
+# [algos]: the FedAvg-engine family through experiments/run.py's main on
+# full-width ResNet-56 (every 3x3 conv on the kernel, bf16 compute) over the
+# CIFAR-10 stand-in: 4 clients of 128 samples (an equal split: 2 full steps
+# of 64 each per round), 2 rounds, 256 test samples, SGD lr 0.01, no decay
+ALGO_CLIENTS, ALGO_SAMPLES, ALGO_BATCH, ALGO_ROUNDS, ALGO_TEST = 4, 128, 64, 2, 256
+ALGO_COMMON = [
+    "--dataset", "cifar10", "--model", "resnet56", "--conv_variant", "kernel",
+    "--client_num_in_total", str(ALGO_CLIENTS), "--client_num_per_round",
+    str(ALGO_CLIENTS), "--partition_method", "homo", "--batch_size", str(ALGO_BATCH),
+    "--max_samples_per_client", str(ALGO_SAMPLES), "--max_test_samples", str(ALGO_TEST),
+    "--comm_round", str(ALGO_ROUNDS), "--lr", "0.01", "--wd", "0",
+    "--compute_dtype", "bf16", "--seed", "0"]
+ALGO_CASES = [
+    ("fedavg", ["--algorithm", "fedavg"]),
+    ("fedprox_mu0", ["--algorithm", "fedprox", "--mu", "0"]),
+    ("fedprox_mu0.01", ["--algorithm", "fedprox", "--mu", "0.01"]),
+    ("fedopt_sgd_lr1", ["--algorithm", "fedopt", "--server_optimizer", "sgd",
+                        "--server_lr", "1"]),
+    ("fedopt_adam", ["--algorithm", "fedopt", "--server_optimizer", "adam",
+                     "--server_lr", "0.01"]),
+    ("fedopt_yogi", ["--algorithm", "fedopt", "--server_optimizer", "yogi",
+                     "--server_lr", "0.01"]),
+    ("fednova_m0", ["--algorithm", "fednova"]),
+    ("fednova_m0.9", ["--algorithm", "fednova", "--momentum", "0.9"]),
+    ("robust_norm_diff_clipping", ["--algorithm", "fedavg_robust", "--defense_type",
+                                   "norm_diff_clipping"]),
+    ("robust_weak_dp", ["--algorithm", "fedavg_robust", "--defense_type", "weak_dp"]),
+    ("robust_median", ["--algorithm", "fedavg_robust", "--defense_type", "median"]),
+    ("hierarchical", ["--algorithm", "hierarchical", "--group_num", "2",
+                      "--group_comm_round", "2"]),
+]
+# held on the card: (case, reference case, checkpoint step, max |Δ| of any
+# variable).  The entry point's server sgd keeps a 0.9 trace (the JAX
+# entry point passes no server momentum), which equals FedAvg after the
+# first round only.  FedNova's aggregate differs from FedAvg's by fp32
+# rounding (~1e-7) after round 1; in round 2 the bf16 forward rounds those
+# weights, where a 1-ulp difference can flip a bf16 rounding (2^-8
+# relative), so the identity is held after round 1 (the CPU rehearsal at
+# a small cut: 1.2e-7 after round 1, 1.1e-2 after round 2).
+ALGO_IDENTITIES = [("fedprox_mu0", "fedavg", ALGO_ROUNDS, 0.0),
+                   ("fedopt_sgd_lr1", "fedavg", 1, 1e-6),
+                   ("fednova_m0", "fedavg", 1, 1e-5)]
 # the card's fp32 round against the CPU's float64 one: max |Δ| of every leaf,
 # relative to the leaf's largest magnitude
 ZOO_ROUND_RTOL = 1e-4
@@ -1544,6 +1600,120 @@ def phase_pack():
             "cohort_mb": mb}
 
 
+def checkpoint_variables(path: str) -> list:
+    """The model variables of a ``core/checkpoint.py`` npz of a
+    ``ServerState``: its first leaves, up to where ``opt_state`` starts."""
+    import numpy as np
+
+    with np.load(path) as z:
+        structure = bytes(z["__treedef__"]).decode()
+        n = structure.split("opt_state=")[0].count("T:")
+        return [np.array(z[f"leaf_{i}"]) for i in range(n)]
+
+
+def phase_algos(device: str = "cuda"):
+    """The FedAvg-engine family (ALGO_CASES) through ``experiments.run.main``
+    on full-width ResNet-56 with every 3x3 conv on the kernel: per case the
+    rounds' times, conv launches per forward (19), the final test accuracy
+    and loss; every round's checkpoint.  Then the identities of
+    ALGO_IDENTITIES between the cases' checkpoints, and the weak-DP noise
+    of a (seed, round, slot) on the card against the CPU's, bit for bit.
+    ``device`` "cpu" rehearses the phase without a card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core import rng, robust
+    from fedml_tpu_torch.core.types import cohort_steps_per_epoch
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.experiments.registry import load_data, shrink_dataset
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    ds = shrink_dataset(load_data("cifar10", "", ALGO_CLIENTS, "homo", 0.5, 0),
+                        ALGO_SAMPLES, ALGO_TEST)
+    steps = cohort_steps_per_epoch(ds, ALGO_BATCH)
+    eval_fwd = math.ceil(len(ds.test_y) / max(ALGO_BATCH, 64))
+    backdoor_fwd = math.ceil(int((ds.test_y != 0).sum()) / max(ALGO_BATCH, 64))
+    rec, launches, tc_launches = {}, 0, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in ALGO_CASES:
+            algo = argv[1]
+            group_rounds = 2 if algo == "hierarchical" else 1
+            train_fwd = ALGO_ROUNDS * group_rounds * ALGO_CLIENTS * steps
+            evals = ALGO_ROUNDS  # rounds 0 and 1: the first, and the last
+            fwd = train_fwd + evals * (eval_fwd + (backdoor_fwd if algo == "fedavg_robust"
+                                                   else 0))
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run.main([*argv, *ALGO_COMMON, "--device", device,
+                            "--checkpoint_every", "1", "--checkpoint_dir",
+                            os.path.join(tmp, name), "--run_dir", os.path.join(tmp, "runs")])
+            secs = time.perf_counter() - t0
+            seen = read_launches()
+            hist, final = out["history"], out["final"]
+            r = {"run_s": secs, "round_s": [row["time_round"] for row in hist],
+                 "forwards": fwd, "launches": seen["conv3x3_mxu"],
+                 "tc_launches": seen["conv3x3_mxu_tc"],
+                 "per_forward": seen["conv3x3_mxu"] / fwd,
+                 "final": {k: v for k, v in final.items()
+                           if k.startswith(("test_", "train_", "backdoor"))}}
+            if "attacking" in final:
+                r["attacking"] = [row["attacking"] for row in hist]
+            rec[name] = r
+            launches += seen["conv3x3_mxu"]
+            tc_launches += seen["conv3x3_mxu_tc"]
+            bd = (f" backdoor_acc {final['backdoor_acc']:.4f} (attacking "
+                  f"{r['attacking']})" if "backdoor_acc" in final else "")
+            print(f"[algos] {name}: {ALGO_ROUNDS} rounds in {secs:.2f} s, round s "
+                  f"{[round(t, 4) for t in r['round_s']]}; train_loss "
+                  f"{final['train_loss']:.4f} test_acc {final['test_acc']:.4f} test_loss "
+                  f"{final['test_loss']:.4f}{bd}; conv3x3_mxu launches "
+                  f"{seen['conv3x3_mxu']} ({seen['conv3x3_mxu_tc']} tensor-core) for {fwd} "
+                  f"forwards = {r['per_forward']:.2f} per forward")
+            if not all(math.isfinite(v) for v in r["final"].values()):
+                fail(f"algos {name}: non-finite metrics {final}")
+            if "attacking" in final and "backdoor_acc" not in final:
+                fail(f"algos {name}: no backdoor_acc in the evaluation record")
+            if device == "cuda" and (seen["conv3x3_mxu"] != 19 * fwd or
+                                     seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * train_fwd):
+                fail(f"algos {name}: conv launches {seen}, expected {19 * fwd} "
+                     f"({TC_PER_FORWARD * train_fwd} tensor-core)")
+            if seen["flash_attention_fwd"]:
+                fail(f"algos {name}: the ResNet-56 path launched the flash kernel")
+        for name, ref, step, limit in ALGO_IDENTITIES:
+            a, b = (checkpoint_variables(os.path.join(tmp, n, f"ckpt_{step}.npz"))
+                    for n in (name, ref))
+            diff = max(float(np.abs(x.astype(np.float64) - y).max()) for x, y in zip(a, b))
+            rec[f"{name} vs {ref}"] = {"round": step, "max_abs_diff": diff, "limit": limit}
+            print(f"[algos] {name} vs {ref} after round {step}: max |variable diff| "
+                  f"{diff:.3g} over {len(a)} leaves (limit {limit:g})")
+            if not (len(a) == len(b) > 0 and diff <= limit):
+                fail(f"algos: {name} is not {ref} within {limit:g} ({diff:.3g})")
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+
+    # weak-DP noise of (PRNGKey(0), round 1, slots 1 and 3) on ResNet-56's
+    # parameters, on the card and on the CPU
+    params = resnet56_tpu(device=device).init(rng.PRNGKey(0))["params"]
+    stacked = {k: torch.stack([t, 0.5 * t]) for k, t in params.items()}
+    keys = np.stack([robust.agg_noise_key(rng.PRNGKey(0), 1, slot) for slot in (1, 3)])
+    card = robust.add_weak_dp_noise({"params": stacked}, keys, 0.025)["params"]
+    host = robust.add_weak_dp_noise(
+        {"params": {k: t.cpu() for k, t in stacked.items()}}, keys, 0.025)["params"]
+    same = all(torch.equal(card[k].cpu(), host[k]) for k in host)
+    n = sum(t.numel() for t in host.values())
+    print(f"[algos] weak-DP noise (stddev 0.025) over ResNet-56's {n} stacked parameter "
+          f"values, (seed 0, round 1, slots 1 and 3): card == cpu bitwise {same}")
+    if not same:
+        fail("algos: the card's weak-DP noise is not the CPU's")
+    rec.update(launches=launches, tc_launches=tc_launches, weak_dp_card_equals_cpu=same)
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write every per-case number here as JSON")
@@ -1574,6 +1744,7 @@ def main() -> int:
     compress_rec = phase_compress()
     pack_rec = phase_pack()
     zoo_rec = phase_zoo(args.profile)
+    algos_rec = phase_algos()
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -1588,7 +1759,7 @@ def main() -> int:
         "source": "fedml_tpu_torch/ops/csrc/conv_mxu.cu",
         "replaces": "fedml_tpu/ops/conv_mxu.py:72",
         "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
-                     + compress_rec["launches"]),
+                     + compress_rec["launches"] + algos_rec["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -1624,7 +1795,8 @@ def main() -> int:
                        "flash_cases": flash_cases, "main": main_rec,
                        "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
                        "sim": sim_rec, "init": init_rec, "compress": compress_rec,
-                       "pack": pack_rec, "zoo": zoo_rec, "kernels": kernels}, f, indent=1)
+                       "pack": pack_rec, "zoo": zoo_rec, "algos": algos_rec,
+                       "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

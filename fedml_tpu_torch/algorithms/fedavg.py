@@ -353,7 +353,13 @@ class FedAvgSimulation:
     or schedule (count -> lr) in place of ``config.lr``.
     ``config.compress_codec`` runs the uplink codec inside the round, with
     a zero residual store per client at round 0 under ``compress_ef``.
-    The initial variables are flax's under ``PRNGKey(config.seed)``."""
+    ``local_update`` replaces the one built from the config.  The initial
+    variables are flax's under ``PRNGKey(config.seed)``.
+
+    Subclasses (the algorithm family) override ``_build_round_fn`` (their
+    own round kernel), ``_sample_ids`` (the cohort), ``_cohort_block`` (the
+    cohort's device block), ``_annotate_round`` (fields of a history row)
+    and ``_extra_eval`` (metrics beside ``evaluate_global``)."""
 
     def __init__(
         self,
@@ -365,6 +371,7 @@ class FedAvgSimulation:
         server_update: ServerUpdateFn = default_server_update,
         server_opt_init: Optional[Callable[[Variables], Any]] = None,
         aggregate_transform: Optional[Callable] = None,
+        local_update: Optional[LocalUpdateFn] = None,
         augment_fn: Optional[Callable] = None,
         client_lr: Optional[Any] = None,
         metrics: Optional[MetricsLogger] = None,
@@ -384,7 +391,7 @@ class FedAvgSimulation:
             momentum=config.momentum, weight_decay=config.weight_decay,
             grad_clip=config.grad_clip,
         )
-        self.local_update = make_local_update(
+        self.local_update = local_update or make_local_update(
             bundle, optimizer, config.epochs, loss_fn,
             prox_mu=config.prox_mu, augment_fn=augment_fn,
             compute_dtype=resolve_compute_dtype(config.compute_dtype),
@@ -515,6 +522,14 @@ class FedAvgSimulation:
         del round_idx
         return self._device_pack(ids)
 
+    def _annotate_round(self, out: dict, ids, round_idx: int) -> None:
+        """Subclass hook: add per-round fields to the history row."""
+
+    def _extra_eval(self) -> dict:
+        """Subclass hook: metrics added at each evaluation (e.g. the
+        robust driver's backdoor accuracy)."""
+        return {}
+
     def _record_sim_comm(self, cohort: int, rounds: int = 1,
                          uploads: Optional[int] = None) -> None:
         """The federation traffic a real transport would move for the
@@ -566,7 +581,9 @@ class FedAvgSimulation:
             # measures the round, not the enqueue
             out = {k: float(v) for k, v in metrics.items()}
         self._record_sim_comm(len(ids), uploads=int(round(out["participants"])))
-        return self._train_row(out, round_idx)
+        out = self._train_row(out, round_idx)
+        self._annotate_round(out, ids, round_idx)
+        return out
 
     def evaluate_global(self) -> dict:
         if self._test_pack is None:
@@ -590,6 +607,7 @@ class FedAvgSimulation:
             if r % self.cfg.frequency_of_the_test == 0 or i == rounds - 1:
                 with self.metrics.span("eval"):
                     metrics.update(self.evaluate_global())
+                metrics.update(self._extra_eval())
                 record_device_memory(self.metrics.telemetry)
             metrics.update(self.metrics.pop_spans())
             self.metrics.log(metrics, step=r)
@@ -605,13 +623,19 @@ class FedAvgSimulation:
         """Full-participation driver: the rounds BETWEEN evals run as one
         ``make_multi_round_fn`` call with no host read-back in between.
         Equal to ``run()`` round for round (same random streams, same
-        resident cohort block)."""
+        resident cohort block).  A subclass's ``_build_round_fn`` is
+        honoured; a ``_cohort_block`` override (a block that changes per
+        round) is refused, since the resident block is packed once."""
         cfg = self.cfg
         if cfg.clients_per_round < cfg.num_clients:
             raise ValueError(
                 "run_fused is the full-participation driver "
                 f"(clients_per_round={cfg.clients_per_round} < "
                 f"num_clients={cfg.num_clients}); use run()")
+        if type(self)._cohort_block is not FedAvgSimulation._cohort_block:
+            raise ValueError(
+                "run_fused cannot honor the _cohort_block override of "
+                f"{type(self).__name__}; use run()")
         rounds = rounds if rounds is not None else cfg.comm_rounds
         ids = np.arange(cfg.num_clients)
         x, y, mask, num_samples = self._cohort_block(ids, 0)
@@ -635,7 +659,10 @@ class FedAvgSimulation:
         cohorts from the same ``host_sample_ids`` stream ``run()`` uses,
         stacks their blocks ``[R, K, ...]``, and one
         ``make_scheduled_multi_round_fn`` call runs the chunk.  Equal to
-        ``run()`` round for round, dropout included."""
+        ``run()`` round for round, dropout included.  Both subclass hooks
+        are honoured: each round's block comes through ``_cohort_block``
+        (the robust attacker's swap) and the chunk runs the subclass's
+        round kernel (FedNova's)."""
         cfg = self.cfg
         rounds = rounds if rounds is not None else cfg.comm_rounds
         fused = instrument_signatures(make_scheduled_multi_round_fn(
@@ -686,6 +713,7 @@ class FedAvgSimulation:
                 for i in range(n):
                     out = self._train_row(
                         {k: float(v[i]) for k, v in stacked.items()}, base + i)
+                    self._annotate_round(out, chunk_ids[i], base + i)
                     self._count_degraded(out)
                     rows.append(out)
             # the JAX engine draws a fused chunk's dropout on the device,
@@ -697,6 +725,7 @@ class FedAvgSimulation:
             if base + n - 1 in eval_rounds:
                 with self.metrics.span("eval"):
                     rows[-1].update(self.evaluate_global())
+                rows[-1].update(self._extra_eval())
                 record_device_memory(self.metrics.telemetry)
             # chunk-level spans ride the chunk's last row
             rows[-1].update(self.metrics.pop_spans())

@@ -28,8 +28,29 @@ def tree_leaves(tree: Tree) -> list:
     return [tree]
 
 
+def tree_zeros_like(tree: Tree) -> Tree:
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_add(a: Tree, b: Tree) -> Tree:
+    return tree_map(torch.add, a, b)
+
+
 def tree_sub(a: Tree, b: Tree) -> Tree:
     return tree_map(torch.sub, a, b)
+
+
+def tree_scale(tree: Tree, s) -> Tree:
+    return tree_map(lambda x: x * s, tree)
+
+
+def tree_weighted_sum(trees, weights) -> Tree:
+    """``sum_i w_i * tree_i``, folded left to right as the JAX package
+    folds it (hierarchical FedAvg's group tier)."""
+    acc = tree_scale(trees[0], weights[0])
+    for t, w in zip(trees[1:], weights[1:]):
+        acc = tree_map(lambda a, x, w=w: a + x * w, acc, t)
+    return acc
 
 
 def tree_sq_norm(tree: Tree) -> torch.Tensor:

@@ -1,0 +1,11 @@
+"""Entry shim: robust FedAvg (reference parity with ``main_fedavg_robust.py``).
+
+    python -m fedml_tpu_torch.experiments.main_fedavg_robust [--comm_round N ...]
+"""
+
+import sys
+
+from fedml_tpu_torch.experiments.run import main
+
+if __name__ == "__main__":
+    main(["--algorithm", "fedavg_robust", *sys.argv[1:]])

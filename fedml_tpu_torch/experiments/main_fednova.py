@@ -1,0 +1,11 @@
+"""Entry shim: FedNova (reference parity with ``main_fednova.py``).
+
+    python -m fedml_tpu_torch.experiments.main_fednova [--comm_round N ...]
+"""
+
+import sys
+
+from fedml_tpu_torch.experiments.run import main
+
+if __name__ == "__main__":
+    main(["--algorithm", "fednova", *sys.argv[1:]])

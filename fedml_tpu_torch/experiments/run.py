@@ -8,7 +8,11 @@
 
 The config is the JAX package's ``ExperimentConfig``, flag for flag, plus
 ``--device`` ("" = the CUDA card, "cpu" = the CPU).  Ported so far:
-``fedavg`` (the FedAvg engine over every (model, dataset) pair of
+the FedAvg-engine family, ``fedavg``, ``fedprox`` (``--mu``), ``fedopt``
+(``--server_optimizer/--server_lr``), ``fednova`` (with no weight
+decay), ``fedavg_robust`` (``--defense_type/--norm_bound/--stddev``, the
+pixel-trigger backdoor on client 1) and ``hierarchical``
+(``--group_num/--group_comm_round``), over every (model, dataset) pair of
 ``registry.py``: ``resnet56`` on ``cifar10`` with the reference's
 per-epoch CIFAR augmentation, ``--data_augmentation 1`` by default, and
 the cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
@@ -17,13 +21,16 @@ the cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
 dataset's task loss; the multi-label one adds ``test_precision`` and
 ``test_recall`` to the evaluation record) and ``fedllm`` on one device
 (the transformer through ``FedAvgSimulation``); ``--checkpoint_every/--checkpoint_dir/--resume``
-(fedavg), ``--crash_at_round`` with the JAX package's semantics, and
-``--compress/--compress_ef`` (update compression with error feedback)
-on fedavg.  Every other algorithm, and the knobs whose machinery is not
+(the FedAvg-engine family), ``--crash_at_round`` with the JAX package's
+semantics, and ``--compress/--compress_ef`` (update compression with
+error feedback) on the FedAvg engine's own round kernel (FedNova builds
+its own and refuses it).  Every other algorithm, and the knobs whose machinery is not
 ported yet (``tp_degree``/``sp_degree``/``mesh``), raise
 ``NotImplementedError`` naming their ROADMAP item; so does
-``--compress`` on fedllm, which the JAX package ignores there.  ``--ci 1`` shrinks
-everything for smoke runs.  ``main`` writes ``<run_dir>/metrics.jsonl``
+``--compress`` on fedllm, which the JAX package ignores there.
+``--conv_variant kernel`` (the port's own flag) runs ResNet-56 with every
+3x3 conv on the Hopper kernel.  ``--ci 1`` shrinks everything for smoke
+runs.  ``main`` writes ``<run_dir>/metrics.jsonl``
 through ``MetricsLogger``.
 """
 
@@ -146,6 +153,11 @@ class ExperimentConfig:
     # the port's stand-in for JAX_PLATFORMS: "" = the CUDA card (raises
     # without one), "cpu" = the CPU with every kernel's plain version
     device: str = ""
+    # the port's (the JAX bench's --conv-variant): "kernel" runs every 3x3
+    # conv of --model resnet56 on the Hopper implicit-GEMM kernel
+    # (models/resnet_tpu.py, the JAX package's conv_variant="pallas");
+    # "" = the registry's library-conv ResNet, as the JAX entry point's
+    conv_variant: str = ""
 
 
 def _apply_ci(cfg: ExperimentConfig) -> ExperimentConfig:
@@ -185,9 +197,23 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to fedml_tpu_torch yet (ROADMAP.md, {item})")
 
 
+# the drivers that take the observability sink themselves: the JAX
+# package's set, and the algorithms ported so far
+_METRICS_NATIVE = frozenset((
+    "fedavg", "fedprox", "fedopt", "fednova", "fedavg_robust",
+    "hierarchical", "fedllm",
+))
+
+# the FedAvg-engine family: the drivers wired into CheckpointManager
+_RESUMABLE = frozenset((
+    "fedavg", "fedprox", "fedopt", "fednova", "fedavg_robust",
+    "hierarchical",
+))
+
+
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Fail before any work on a knob whose machinery is not ported."""
-    if cfg.algorithm not in ("fedavg", "fedllm"):
+    if cfg.algorithm not in _METRICS_NATIVE:
         raise _not_ported(f"algorithm {cfg.algorithm!r}",
                           "queue A item 4: the algorithm family")
     if cfg.tp_degree > 1 or cfg.sp_degree > 1 or cfg.mesh or cfg.partition_rules:
@@ -201,15 +227,10 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
             "one-device fedllm path does not compress (ROADMAP.md, queue C4)")
 
 
-# the drivers wired into CheckpointManager (the JAX package's FedAvg-engine
-# family, as far as it is ported)
-_RESUMABLE = frozenset(("fedavg",))
-
-
-def _fedavg_config(cfg: ExperimentConfig, ds):
+def _fedavg_config(cfg: ExperimentConfig, ds, **override):
     from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
 
-    return FedAvgConfig(
+    return FedAvgConfig(**{**dict(
         num_clients=ds.num_clients,
         clients_per_round=min(cfg.client_num_per_round, ds.num_clients),
         comm_rounds=cfg.comm_round, epochs=cfg.epochs,
@@ -218,7 +239,7 @@ def _fedavg_config(cfg: ExperimentConfig, ds):
         frequency_of_the_test=cfg.frequency_of_the_test, seed=cfg.seed,
         compute_dtype=cfg.compute_dtype or None, drop_prob=cfg.drop_prob,
         compress_codec=cfg.compress or None, compress_ef=bool(cfg.compress_ef),
-    )
+    ), **override})
 
 
 def run_experiment(cfg: ExperimentConfig, log_fn=print, metrics=None) -> dict:
@@ -238,9 +259,7 @@ def run_experiment(cfg: ExperimentConfig, log_fn=print, metrics=None) -> dict:
 
 
 def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
-    """Build data, model and simulation, and run (``fedavg`` or ``fedllm``)."""
-    from fedml_tpu_torch.algorithms.fedavg import FedAvgSimulation
-
+    """Build data, model and simulation, and run."""
     device = resolve_device(cfg.device or None)
     ds = shrink_dataset(
         load_data(cfg.dataset, cfg.data_dir, cfg.client_num_in_total,
@@ -258,13 +277,20 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
             vocab_size=vocab, embed_dim=cfg.embed_dim, num_heads=cfg.num_heads,
             num_layers=cfg.num_layers, seq_len=seq_len, device=device,
         )
+    elif cfg.conv_variant:
+        if (cfg.model, cfg.conv_variant) != ("resnet56", "kernel"):
+            raise ValueError("--conv_variant kernel is ResNet-56's (--model "
+                             f"resnet56); got {cfg.model!r}, {cfg.conv_variant!r}")
+        from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+        bundle = resnet56_tpu(ds.num_classes, int(ds.train_x.shape[1]),
+                              device=device)
     else:
         bundle = create_model(cfg.model, cfg.dataset, ds.num_classes,
                               input_shape=tuple(ds.train_x.shape[1:]),
                               device=device)
-    sim = FedAvgSimulation(bundle, ds, _fedavg_config(cfg, ds),
-                           loss_fn=loss_fn, metrics=metrics, device=device,
-                           augment_fn=_augment_fn(cfg, ds))
+    sim = _simulation(cfg, ds, bundle, loss_fn=loss_fn, metrics=metrics,
+                      device=device, augment_fn=_augment_fn(cfg, ds))
     done = _attach_checkpointing(cfg, sim)
     if cfg.crash_at_round >= 0:
         sim.crash_at_round = cfg.crash_at_round
@@ -275,6 +301,44 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
     if done:
         out["resumed_rounds"] = done
     return out
+
+
+def _simulation(cfg: ExperimentConfig, ds, bundle, **engine_kw):
+    """The FedAvg-engine driver of ``cfg.algorithm`` (fedllm runs on
+    ``FedAvgSimulation``), as the JAX package's dispatch builds it."""
+    if cfg.algorithm in ("fedavg", "fedllm"):
+        from fedml_tpu_torch.algorithms.fedavg import FedAvgSimulation
+
+        return FedAvgSimulation(bundle, ds, _fedavg_config(cfg, ds), **engine_kw)
+    if cfg.algorithm == "fedprox":
+        from fedml_tpu_torch.algorithms.fedprox import FedProxSimulation
+
+        return FedProxSimulation(bundle, ds, _fedavg_config(cfg, ds), mu=cfg.mu,
+                                 **engine_kw)
+    if cfg.algorithm == "fedopt":
+        from fedml_tpu_torch.algorithms.fedopt import FedOptSimulation
+
+        return FedOptSimulation(bundle, ds, _fedavg_config(cfg, ds),
+                                server_optimizer=cfg.server_optimizer,
+                                server_lr=cfg.server_lr, **engine_kw)
+    if cfg.algorithm == "fednova":
+        from fedml_tpu_torch.algorithms.fednova import FedNovaSimulation
+
+        return FedNovaSimulation(bundle, ds, _fedavg_config(cfg, ds, weight_decay=0.0),
+                                 **engine_kw)
+    if cfg.algorithm == "fedavg_robust":
+        from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustSimulation
+
+        return FedAvgRobustSimulation(
+            bundle, ds, _fedavg_config(cfg, ds), defense_type=cfg.defense_type,
+            norm_bound=cfg.norm_bound, stddev=cfg.stddev, **engine_kw)
+    if cfg.algorithm == "hierarchical":
+        from fedml_tpu_torch.algorithms.hierarchical import HierarchicalSimulation
+
+        return HierarchicalSimulation(
+            bundle, ds, _fedavg_config(cfg, ds), num_groups=cfg.group_num,
+            group_comm_round=cfg.group_comm_round, **engine_kw)
+    raise ValueError(f"unknown algorithm: {cfg.algorithm}")
 
 
 def _augment_fn(cfg: ExperimentConfig, ds):
