@@ -114,6 +114,20 @@ Phases, in order; any failure exits non-zero:
              round 1 within 1e-6, FedNova momentum 0 (equal steps) == FedAvg
              after round 1 within 1e-5, and the weak-DP noise of a (seed,
              round, slot) card == CPU bitwise.
+14. standalone — the drivers beside the FedAvg engine through
+             ``experiments.run.main`` at [algos]' cut (no checkpoints):
+             centralized (the whole 5,000-image stand-in per epoch, as the
+             JAX driver trains), decentralized gossip and TurboAggregate on
+             the kernel ResNet-56 in bf16, 19 conv launches per forward (18
+             tensor-core per training forward); FedGKT on resnet8_56 +
+             resnet56_server (``--epochs_server 1``, fp32, library convs),
+             which launches neither kernel.  Per driver the round (epoch)
+             times and final metrics, all finite, and the gossip's
+             consensus distance.  Then ``secure_weighted_sum`` of four
+             ResNet-56-sized vectors card == CPU bitwise and within
+             n/(2·scale) of the float64 weighted sum, ``lcc_coded_sum`` with
+             worker 1 dropped == none dropped bitwise, and an int64
+             ``randint`` over [0, 2^31 − 1) card == CPU bitwise.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -246,6 +260,20 @@ ALGO_CASES = [
 ALGO_IDENTITIES = [("fedprox_mu0", "fedavg", ALGO_ROUNDS, 0.0),
                    ("fedopt_sgd_lr1", "fedavg", 1, 1e-6),
                    ("fednova_m0", "fedavg", 1, 1e-5)]
+# [standalone]: the drivers beside the FedAvg engine through experiments/run.py's
+# main at [algos]' cut (ALGO_COMMON: the kernel ResNet-56, bf16, 4 clients of
+# 128 CIFAR-10 stand-in samples, batch 64, 2 rounds, 256 test samples, seed 0);
+# fedgkt runs its own pair (resnet8_56 clients, resnet56_server) in fp32 on
+# library convs, so it drops --conv_variant/--compute_dtype
+STANDALONE_CASES = [
+    ("centralized", ["--algorithm", "centralized", *ALGO_COMMON]),
+    ("decentralized", ["--algorithm", "decentralized", *ALGO_COMMON]),
+    ("turboaggregate", ["--algorithm", "turboaggregate", *ALGO_COMMON]),
+    ("fedgkt", ["--algorithm", "fedgkt", "--epochs_server", "1",
+                *[a for flag, value in zip(ALGO_COMMON[::2], ALGO_COMMON[1::2])
+                  if flag not in ("--conv_variant", "--compute_dtype")
+                  for a in (flag, value)]]),
+]
 # the card's fp32 round against the CPU's float64 one: max |Δ| of every leaf,
 # relative to the leaf's largest magnitude
 ZOO_ROUND_RTOL = 1e-4
@@ -1714,6 +1742,160 @@ def phase_algos(device: str = "cuda"):
     return rec
 
 
+class _RoundTimer:
+    """Wraps ``cls.method`` while in use: the host seconds of each call
+    (each ends in a metric read-back, so the device has finished) and the
+    last instance it ran on."""
+
+    def __init__(self, cls, method: str):
+        self.cls, self.method, self.secs, self.owner = cls, method, [], None
+
+    def __enter__(self):
+        orig = self.orig = getattr(self.cls, self.method)
+
+        def timed(obj, *a, **kw):
+            t0 = time.perf_counter()
+            out = orig(obj, *a, **kw)
+            self.secs.append(time.perf_counter() - t0)
+            self.owner = obj
+            return out
+        setattr(self.cls, self.method, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cls, self.method, self.orig)
+
+
+def _ms_of(fn, device) -> tuple:
+    """``(fn(), its host milliseconds)``, the device synchronized around it."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def phase_standalone(device: str = "cuda"):
+    """The standalone drivers (STANDALONE_CASES) through
+    ``experiments.run.main``: per driver the round (centralized: epoch)
+    times, the final metrics and the conv kernel's launches against the
+    forwards counted from the geometry (19 per forward, 18 tensor-core per
+    bf16 training forward; none for the GKT pair).  Then, on the card
+    against the CPU: ``secure_weighted_sum`` of four ResNet-56-sized
+    vectors (bit for bit, and within n/(2·scale) of the float64 weighted
+    sum), ``lcc_coded_sum`` with a dropped worker against the sum with none
+    (bit for bit), an int64 ``randint`` over [0, 2^31 − 1) (bit for bit);
+    and the gossip's consensus distance.  ``device`` "cpu" rehearses the
+    phase without a card."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms import turboaggregate as turbo
+    from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+    from fedml_tpu_torch.algorithms.decentralized import DecentralizedSimulation
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKT
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateSimulation
+    from fedml_tpu_torch.core import mpc, rng
+    from fedml_tpu_torch.core import tree as treelib
+    from fedml_tpu_torch.core.types import cohort_steps_per_epoch
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.experiments.registry import load_data, shrink_dataset
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+    ds = shrink_dataset(load_data("cifar10", "", ALGO_CLIENTS, "homo", 0.5, 0),
+                        ALGO_SAMPLES, ALGO_TEST)
+    steps = cohort_steps_per_epoch(ds, ALGO_BATCH)
+    eval_fwd = math.ceil(len(ds.test_y) / 64)
+    # centralized trains on the whole train set (the JAX driver ignores the
+    # per-client cap): every epoch ceil(n / batch) steps
+    train_fwd = {"centralized": ALGO_ROUNDS * math.ceil(len(ds.train_y) / ALGO_BATCH),
+                 "decentralized": ALGO_ROUNDS * ALGO_CLIENTS * steps,
+                 "turboaggregate": ALGO_ROUNDS * ALGO_CLIENTS * steps, "fedgkt": 0}
+    timed = {"centralized": (CentralizedTrainer, "train"),
+             "decentralized": (DecentralizedSimulation, "run_round"),
+             "turboaggregate": (TurboAggregateSimulation, "run_round"),
+             "fedgkt": (FedGKT, "run_round")}
+    rec, launches, tc_launches = {}, 0, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in STANDALONE_CASES:
+            fwd = train_fwd[name] + (eval_fwd if name != "fedgkt" else 0)
+            with _RoundTimer(*timed[name]) as timer:
+                reset_launches()
+                t0 = time.perf_counter()
+                out = run.main([*argv, "--device", device,
+                                "--run_dir", os.path.join(tmp, "runs")])
+                secs = time.perf_counter() - t0
+                seen = read_launches()
+            final = out.get("final") or out["history"][-1]
+            r = {"run_s": secs, "round_s": timer.secs, "forwards": fwd,
+                 "launches": seen["conv3x3_mxu"], "tc_launches": seen["conv3x3_mxu_tc"],
+                 "final": {k: v for k, v in final.items() if k != "round"}}
+            if name == "decentralized":
+                r["consensus_distance"] = timer.owner.consensus_distance()
+            rec[name] = r
+            launches += seen["conv3x3_mxu"]
+            tc_launches += seen["conv3x3_mxu_tc"]
+            extra = (f"; consensus distance {r['consensus_distance']:.6g}"
+                     if "consensus_distance" in r else "")
+            print(f"[standalone] {name}: {secs:.2f} s, round s "
+                  f"{[round(t, 4) for t in timer.secs]}; final "
+                  f"{ {k: round(v, 4) for k, v in r['final'].items()} }{extra}; "
+                  f"conv3x3_mxu launches {seen['conv3x3_mxu']} "
+                  f"({seen['conv3x3_mxu_tc']} tensor-core) for {fwd} forwards")
+            if not all(math.isfinite(v) for v in r["final"].values()):
+                fail(f"standalone {name}: non-finite metrics {final}")
+            if device == "cuda" and (seen["conv3x3_mxu"] != 19 * fwd or
+                                     seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * train_fwd[name]):
+                fail(f"standalone {name}: conv launches {seen}, expected {19 * fwd} "
+                     f"({TC_PER_FORWARD * train_fwd[name]} tensor-core)")
+            if seen["flash_attention_fwd"]:
+                fail(f"standalone {name}: the path launched the flash kernel")
+
+    # the secure sum of four ResNet-56-sized vectors, on the device and the CPU
+    d = treelib.tree_ravel(resnet56_tpu(device="cpu").init(rng.PRNGKey(0))).numel()
+    r64 = np.random.RandomState(0)
+    host = [torch.from_numpy(r64.normal(0, 0.1, d).astype(np.float32)) for _ in range(4)]
+    vecs = [v.to(device) for v in host]
+    w = np.asarray([0.1, 0.2, 0.3, 0.4])
+    key = rng.PRNGKey(7)
+    got, sec_ms = _ms_of(lambda: turbo.secure_weighted_sum(vecs, w, key), device)
+    want, sec_cpu_ms = _ms_of(lambda: turbo.secure_weighted_sum(host, w, key), "cpu")
+    exact = sum(wi * v.double() for wi, v in zip(w, host))
+    err = float((want - exact).abs().max())
+    same = torch.equal(got.cpu(), want)
+    print(f"[standalone] secure_weighted_sum of 4 x {d} values: {device} {sec_ms:.1f} ms, "
+          f"cpu {sec_cpu_ms:.1f} ms; {device} == cpu bitwise {same}; max |Δ| from the "
+          f"float64 sum {err:.3g} (limit {4 / (2 * 2.0 ** 16):.3g})")
+    if not same or err > 4 / (2 * 2.0 ** 16):
+        fail("standalone: the secure sum differs from the CPU's or the float64 sum")
+    full, lcc_ms = _ms_of(lambda: turbo.lcc_coded_sum(vecs, key), device)
+    dropped = turbo.lcc_coded_sum(vecs, key, drop=(1,))
+    lcc_same = torch.equal(full, dropped)
+    print(f"[standalone] lcc_coded_sum (k 2, t 1) of the same vectors: {lcc_ms:.1f} ms; worker "
+          f"1 dropped == none dropped bitwise {lcc_same}")
+    if not lcc_same:
+        fail("standalone: the LCC sum with a dropped worker differs")
+    draw = rng.randint(rng.PRNGKey(3), (4, d), 0, mpc.DEFAULT_PRIME, device, torch.int64)
+    draw_same = torch.equal(
+        draw.cpu(), rng.randint(rng.PRNGKey(3), (4, d), 0, mpc.DEFAULT_PRIME, "cpu",
+                                torch.int64))
+    print(f"[standalone] int64 randint of 4 x {d} over [0, 2^31 - 1): {device} == cpu "
+          f"bitwise {draw_same}")
+    if not draw_same:
+        fail("standalone: the int64 draw differs from the CPU's")
+    rec.update(launches=launches, tc_launches=tc_launches, vector_size=d,
+               secure_sum_ms=sec_ms, secure_sum_cpu_ms=sec_cpu_ms, secure_sum_err=err,
+               secure_sum_card_equals_cpu=same, lcc_ms=lcc_ms, lcc_drop_equal=lcc_same,
+               randint64_card_equals_cpu=draw_same)
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write every per-case number here as JSON")
@@ -1745,6 +1927,7 @@ def main() -> int:
     pack_rec = phase_pack()
     zoo_rec = phase_zoo(args.profile)
     algos_rec = phase_algos()
+    standalone_rec = phase_standalone()
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -1759,7 +1942,8 @@ def main() -> int:
         "source": "fedml_tpu_torch/ops/csrc/conv_mxu.cu",
         "replaces": "fedml_tpu/ops/conv_mxu.py:72",
         "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
-                     + compress_rec["launches"] + algos_rec["launches"]),
+                     + compress_rec["launches"] + algos_rec["launches"]
+                     + standalone_rec["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -1796,6 +1980,7 @@ def main() -> int:
                        "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
                        "sim": sim_rec, "init": init_rec, "compress": compress_rec,
                        "pack": pack_rec, "zoo": zoo_rec, "algos": algos_rec,
+                       "standalone": standalone_rec,
                        "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -90,11 +90,8 @@ def split(key: Key, num: int = 2) -> np.ndarray:
 def random_bits(key: Key, shape: Sequence[int],
                 device=None) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 words on ``device``."""
-    shape = tuple(int(s) for s in shape)
-    idx = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=torch.int64,
-                       device=device)
-    b1, b2 = threefry2x32(*_words(key), idx >> 32, idx & MASK)
-    return (b1 ^ b2).reshape(shape)
+    b1, b2 = _bit_pair(key, shape, device)
+    return b1 ^ b2
 
 
 def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
@@ -245,22 +242,63 @@ def bernoulli(key: Key, p: float, shape: Sequence[int],
 
 
 def randint(key: Key, shape: Sequence[int], minval: int, maxval: int,
-            device=None) -> torch.Tensor:
-    """``jax.random.randint(key, shape, minval, maxval)`` (int32): two
-    32-bit draws under ``split(key)``, folded into the span as JAX does,
-    ``(hi % span · (2^32 % span) + lo % span) % span`` in uint32
-    arithmetic."""
-    info = np.iinfo(np.int32)
+            device=None, dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, dtype)`` for int32
+    and (under x64) int64: two draws under ``split(key)``, folded into the
+    span as JAX does, ``(hi % span · (2^n % span) + lo % span) % span``
+    in unsigned n-bit arithmetic, n = 32 or 64.
+
+    int32 draws 32-bit words (``bits1 ^ bits2``).  int64 draws 64-bit
+    words, ``bits1 << 32 | bits2`` over the same counters (jax 0.9.0's
+    partitionable threefry); the words stay split in int64 tensors and
+    the uint64 remainders are taken piecewise, exactly, for a span up to
+    2^32 (a wider int64 span raises)."""
+    if dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"randint draws int32 or int64, got {dtype}")
+    info = np.iinfo(np.int32 if dtype == torch.int32 else np.int64)
     if not (info.min <= minval <= info.max and info.min <= maxval <= info.max):
-        raise ValueError(f"randint bounds [{minval}, {maxval}) outside int32")
+        raise ValueError(f"randint bounds [{minval}, {maxval}) outside {info.dtype}")
+    span = maxval - minval if maxval > minval else 1
     k_hi, k_lo = split(key)
-    hi = random_bits(k_hi, shape, device)
-    lo = random_bits(k_lo, shape, device)
-    span = (maxval - minval) & MASK if maxval > minval else 1
-    multiplier = (2 ** 16) % span
-    multiplier = (multiplier * multiplier) % span
-    offset = ((((hi % span) * multiplier) & MASK) + lo % span) & MASK
-    return (minval + offset % span).to(torch.int32)
+    if dtype == torch.int32:
+        hi = random_bits(k_hi, shape, device)
+        lo = random_bits(k_lo, shape, device)
+        multiplier = (2 ** 16) % span
+        # squared in uint32, as JAX squares it: it wraps for a span > 2^16
+        multiplier = ((multiplier * multiplier) & MASK) % span
+        offset = ((((hi % span) * multiplier) & MASK) + lo % span) & MASK
+        return (minval + offset % span).to(torch.int32)
+    if span > 2 ** 32:
+        raise ValueError(f"randint: an int64 span of {span} is wider than 2^32")
+    two32 = (2 ** 32) % span  # 2^32 mod span, below 2^32
+    multiplier = (two32 * two32) % span  # (2^64 mod span), as JAX squares 2^32
+
+    def words64_mod(k):
+        # the 64-bit word w1·2^32 + w2, mod span
+        w1, w2 = _bit_pair(k, shape, device)
+        return _mulmod(w1 % span, two32, span) + w2 % span
+
+    hi = words64_mod(k_hi) % span
+    lo = words64_mod(k_lo) % span
+    offset = (_mulmod(hi, multiplier, span) + lo) % span
+    return minval + offset
+
+
+def _bit_pair(key: Key, shape: Sequence[int], device=None):
+    """The two threefry output words ``(bits1, bits2)`` over the counters
+    of ``shape``, as int64 tensors (``random_bits`` returns their xor)."""
+    shape = tuple(int(s) for s in shape)
+    idx = torch.arange(int(np.prod(shape, dtype=np.int64)), dtype=torch.int64,
+                       device=device)
+    b1, b2 = threefry2x32(*_words(key), idx >> 32, idx & MASK)
+    return b1.reshape(shape), b2.reshape(shape)
+
+
+def _mulmod(a: torch.Tensor, m: int, span: int) -> torch.Tensor:
+    """``(a · m) mod span`` exactly in int64 for ``a, m < span ≤ 2^32``:
+    ``m`` split into 16-bit halves keeps every product below 2^48."""
+    m_hi, m_lo = m >> 16, m & 0xFFFF
+    return ((((a * m_hi) % span) << 16) + a * m_lo) % span
 
 
 def permutation(key: Key, n: int, device=None) -> torch.Tensor:

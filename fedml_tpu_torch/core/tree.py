@@ -82,3 +82,37 @@ def tree_fold_weighted(acc: Optional[Tree], tree: Tree, w) -> Tree:
 
 def tree_detach(tree: Tree) -> Tree:
     return tree_map(torch.Tensor.detach, tree)
+
+
+def tree_ravel(tree: Tree) -> torch.Tensor:
+    """Every leaf cast to float32 and flattened into one vector, in
+    ``tree_leaves`` order: the dict order (collection, then the module's
+    state names in creation order), not flax's sorted path order.  Whole
+    per-element operations (the secure aggregate) do not depend on the
+    order; which element a random share lands on does."""
+    return torch.cat([leaf.reshape(-1).float() for leaf in tree_leaves(tree)])
+
+
+def tree_unravel(tree_like: Tree, vec: torch.Tensor) -> Tree:
+    """Inverse of ``tree_ravel``: slices of ``vec`` in the same leaf order,
+    reshaped and cast back to each leaf's dtype."""
+    off = 0
+
+    def take(leaf):
+        nonlocal off
+        n = leaf.numel()
+        out = vec[off:off + n].reshape(leaf.shape).to(leaf.dtype)
+        off += n
+        return out
+
+    return tree_map(take, tree_like)
+
+
+def tree_stack(trees) -> Tree:
+    """Stack identically-shaped trees along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_index(tree: Tree, i) -> Tree:
+    """Slice ``i`` of the leading axis of every leaf."""
+    return tree_map(lambda x: x[i], tree)

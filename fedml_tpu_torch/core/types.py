@@ -188,6 +188,12 @@ def device_resident_pack(
     return args, pack.num_samples.copy()
 
 
+def to_device(pack, device) -> Tuple[torch.Tensor, ...]:
+    """A host pack (a tuple of numpy arrays, e.g. ``batch_eval_pack``'s)
+    as tensors on ``device``."""
+    return tuple(torch.as_tensor(a).to(device) for a in pack)
+
+
 def cohort_steps_per_epoch(dataset: FedDataset, batch_size: int) -> int:
     """Steps to cover the LARGEST client at ``batch_size`` (smaller
     clients pad-by-wrapping): the pack geometry every driver shares."""

@@ -1,0 +1,11 @@
+"""Entry shim: the centralized baseline (reference parity with ``main_centralized.py``).
+
+    python -m fedml_tpu_torch.experiments.main_centralized [--comm_round N ...]
+"""
+
+import sys
+
+from fedml_tpu_torch.experiments.run import main
+
+if __name__ == "__main__":
+    main(["--algorithm", "centralized", *sys.argv[1:]])

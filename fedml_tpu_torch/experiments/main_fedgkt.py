@@ -1,0 +1,11 @@
+"""Entry shim: FedGKT (reference parity with ``main_fedgkt.py``).
+
+    python -m fedml_tpu_torch.experiments.main_fedgkt [--comm_round N ...]
+"""
+
+import sys
+
+from fedml_tpu_torch.experiments.run import main
+
+if __name__ == "__main__":
+    main(["--algorithm", "fedgkt", *sys.argv[1:]])

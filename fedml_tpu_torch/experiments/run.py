@@ -20,16 +20,24 @@ the cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
 ``shakespeare``, ``fed_shakespeare`` and ``stackoverflow_nwp`` — with the
 dataset's task loss; the multi-label one adds ``test_precision`` and
 ``test_recall`` to the evaluation record) and ``fedllm`` on one device
-(the transformer through ``FedAvgSimulation``); ``--checkpoint_every/--checkpoint_dir/--resume``
+(the transformer through ``FedAvgSimulation``); the standalone drivers
+``centralized``, ``decentralized`` (gossip over
+``SymmetricTopologyManager(n, min(2, n − 1))``, worker 0 evaluated),
+``turboaggregate`` (the secure sum over the field) and ``fedgkt``
+(``resnet8_56`` clients, ``resnet56_server``; ``--epochs_server``,
+``--temperature``, ``--alpha_kd``), their history logged after the run;
+``--checkpoint_every/--checkpoint_dir/--resume``
 (the FedAvg-engine family), ``--crash_at_round`` with the JAX package's
 semantics, and ``--compress/--compress_ef`` (update compression with
 error feedback) on the FedAvg engine's own round kernel (FedNova builds
-its own and refuses it).  Every other algorithm, and the knobs whose machinery is not
-ported yet (``tp_degree``/``sp_degree``/``mesh``), raise
-``NotImplementedError`` naming their ROADMAP item; so does
-``--compress`` on fedllm, which the JAX package ignores there.
-``--conv_variant kernel`` (the port's own flag) runs ResNet-56 with every
-3x3 conv on the Hopper kernel.  ``--ci 1`` shrinks everything for smoke
+its own and refuses it).  ``fednas``, ``splitnn``, ``vfl`` and
+``base_framework``, and the knobs whose machinery is not ported yet
+(``tp_degree``/``sp_degree``/``mesh``), raise ``NotImplementedError``
+naming their ROADMAP item; so does ``--compress`` outside the FedAvg
+engine, which the JAX package ignores there.  ``--conv_variant kernel``
+(the port's own flag) runs ResNet-56 with every 3x3 conv on the Hopper
+kernel (centralized, decentralized and turboaggregate too; fedgkt
+refuses it and ``--compute_dtype``).  ``--ci 1`` shrinks everything for smoke
 runs.  ``main`` writes ``<run_dir>/metrics.jsonl``
 through ``MetricsLogger``.
 """
@@ -197,8 +205,8 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to fedml_tpu_torch yet (ROADMAP.md, {item})")
 
 
-# the drivers that take the observability sink themselves: the JAX
-# package's set, and the algorithms ported so far
+# the drivers that take the observability sink themselves (the JAX
+# package's set); run_experiment logs the others' history rows after the run
 _METRICS_NATIVE = frozenset((
     "fedavg", "fedprox", "fedopt", "fednova", "fedavg_robust",
     "hierarchical", "fedllm",
@@ -210,21 +218,38 @@ _RESUMABLE = frozenset((
     "hierarchical",
 ))
 
+# the standalone drivers beside the FedAvg engine (no checkpoint wiring,
+# no codec stage)
+_STANDALONE = frozenset(("centralized", "decentralized", "turboaggregate", "fedgkt"))
+
+# what is still to port, and the ROADMAP item that names it
+_UNPORTED = {
+    "fednas": "queue A item 4: the algorithm family (fednas.py, models/darts/)",
+    "splitnn": "queue A item 4: the algorithm family (splitnn.py)",
+    "vfl": "queue A item 4: the algorithm family (vfl.py, models/finance.py)",
+    "base_framework": "queue A item 5: the cross-device runtime (comm/)",
+}
+
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Fail before any work on a knob whose machinery is not ported."""
-    if cfg.algorithm not in _METRICS_NATIVE:
-        raise _not_ported(f"algorithm {cfg.algorithm!r}",
-                          "queue A item 4: the algorithm family")
+    if cfg.algorithm in _UNPORTED:
+        raise _not_ported(f"algorithm {cfg.algorithm!r}", _UNPORTED[cfg.algorithm])
     if cfg.tp_degree > 1 or cfg.sp_degree > 1 or cfg.mesh or cfg.partition_rules:
         raise _not_ported("tp_degree/sp_degree/mesh (the multi-device engines)",
                           "queue A item 6: transformer and parallel")
-    if cfg.algorithm == "fedllm" and (cfg.compress or cfg.compress_ef):
-        # the JAX package's one-device fedllm path ignores these flags
+    if (cfg.compress or cfg.compress_ef) and cfg.algorithm not in _RESUMABLE:
+        # the JAX package ignores these flags outside the FedAvg engine
         # (ROADMAP queue C4); refusing beats training uncompressed silently
         raise NotImplementedError(
-            "--compress/--compress_ef on fedllm: the JAX package's "
-            "one-device fedllm path does not compress (ROADMAP.md, queue C4)")
+            f"--compress/--compress_ef on {cfg.algorithm}: only the FedAvg "
+            "engine's round compresses; the JAX package's other drivers do "
+            "not (ROADMAP.md, queue C4)")
+    if cfg.algorithm == "fedgkt" and (cfg.conv_variant or cfg.compute_dtype):
+        raise ValueError(
+            "fedgkt builds its own pair (resnet8_56 clients, resnet56_server) on "
+            "library convs in float32: --conv_variant and --compute_dtype do not "
+            f"apply (got {cfg.conv_variant!r}, {cfg.compute_dtype!r})")
 
 
 def _fedavg_config(cfg: ExperimentConfig, ds, **override):
@@ -255,7 +280,14 @@ def run_experiment(cfg: ExperimentConfig, log_fn=print, metrics=None) -> dict:
     # a file-less logger still feeds the process telemetry registry;
     # main() passes a run_dir-backed one so metrics.jsonl is emitted
     metrics = metrics if metrics is not None else MetricsLogger()
-    return _dispatch(cfg, log_fn, metrics, t0)
+    out = _dispatch(cfg, log_fn, metrics, t0)
+    if cfg.algorithm not in _METRICS_NATIVE:
+        # the drivers without a metrics sink of their own: their history
+        # rows are logged after the run
+        for row in out.get("history") or []:
+            if isinstance(row, dict):
+                metrics.log(row, step=row.get("round"))
+    return out
 
 
 def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
@@ -267,6 +299,8 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
         cfg.max_samples_per_client, cfg.max_test_samples,
     )
     loss_fn = task_loss_for_dataset(cfg.dataset)
+    if cfg.algorithm == "fedgkt":
+        return _run_fedgkt(cfg, ds, device, t0)
     if cfg.algorithm == "fedllm":
         # federated transformer fine-tuning over token sequences
         from fedml_tpu_torch.models.transformer import transformer_lm
@@ -289,6 +323,8 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
         bundle = create_model(cfg.model, cfg.dataset, ds.num_classes,
                               input_shape=tuple(ds.train_x.shape[1:]),
                               device=device)
+    if cfg.algorithm in _STANDALONE:
+        return _run_standalone(cfg, ds, bundle, loss_fn, device, t0)
     sim = _simulation(cfg, ds, bundle, loss_fn=loss_fn, metrics=metrics,
                       device=device, augment_fn=_augment_fn(cfg, ds))
     done = _attach_checkpointing(cfg, sim)
@@ -301,6 +337,69 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
     if done:
         out["resumed_rounds"] = done
     return out
+
+
+def _run_fedgkt(cfg: ExperimentConfig, ds, device, t0) -> dict:
+    """FedGKT over the reference's pair: ``resnet8_56`` on each client,
+    ``resnet56_server`` on the server."""
+    from fedml_tpu_torch.algorithms.fedgkt import FedGKT, FedGKTConfig
+    from fedml_tpu_torch.models.resnet_gkt import resnet8_56, resnet56_server
+
+    img = ds.train_x.shape[1]
+    algo = FedGKT(
+        resnet8_56(ds.num_classes, img, device=device),
+        resnet56_server(ds.num_classes, img, device=device),
+        ds, FedGKTConfig(
+            num_clients=ds.num_clients, comm_rounds=cfg.comm_round,
+            epochs_client=cfg.epochs, epochs_server=cfg.epochs_server,
+            batch_size=cfg.batch_size, lr_client=cfg.lr, lr_server=cfg.lr,
+            temperature=cfg.temperature, alpha=cfg.alpha_kd, seed=cfg.seed,
+        ), device=device)
+    hist = algo.run()
+    return {"history": hist, "wall_s": time.time() - t0}
+
+
+def _run_standalone(cfg: ExperimentConfig, ds, bundle, loss_fn, device, t0) -> dict:
+    """The centralized, decentralized and TurboAggregate drivers, built
+    with the JAX package's arguments.  ``--compute_dtype`` (which the JAX
+    entry point ignores for them) reaches their local update, as it does
+    the FedAvg engine's."""
+    from fedml_tpu_torch.algorithms.fedavg import resolve_compute_dtype
+
+    dtype = resolve_compute_dtype(cfg.compute_dtype or None)
+    if cfg.algorithm == "centralized":
+        from fedml_tpu_torch.algorithms.centralized import CentralizedTrainer
+
+        trainer = CentralizedTrainer(
+            bundle, ds, batch_size=cfg.batch_size, lr=cfg.lr,
+            optimizer=cfg.client_optimizer, weight_decay=cfg.wd,
+            momentum=cfg.momentum, seed=cfg.seed, loss_fn=loss_fn,
+            compute_dtype=dtype, device=device)
+        hist = [trainer.train(epochs=cfg.epochs) for _ in range(cfg.comm_round)]
+        hist[-1].update(trainer.evaluate())
+        return {"history": hist, "final": hist[-1], "wall_s": time.time() - t0}
+    if cfg.algorithm == "decentralized":
+        from fedml_tpu_torch.algorithms.decentralized import DecentralizedSimulation
+        from fedml_tpu_torch.core.topology import SymmetricTopologyManager
+
+        tm = SymmetricTopologyManager(
+            ds.num_clients, neighbor_num=min(2, ds.num_clients - 1), seed=cfg.seed)
+        sim = DecentralizedSimulation(
+            bundle, ds, tm.generate_topology(), epochs=cfg.epochs,
+            batch_size=cfg.batch_size, lr=cfg.lr, seed=cfg.seed, loss_fn=loss_fn,
+            compute_dtype=dtype, device=device)
+        hist = sim.run(cfg.comm_round)
+        return {"history": hist, "final": sim.evaluate_worker(0),
+                "wall_s": time.time() - t0}
+    from fedml_tpu_torch.algorithms.turboaggregate import (TurboAggregateConfig,
+                                                           TurboAggregateSimulation)
+
+    algo = TurboAggregateSimulation(bundle, ds, TurboAggregateConfig(
+        num_clients=ds.num_clients, comm_rounds=cfg.comm_round, epochs=cfg.epochs,
+        batch_size=cfg.batch_size, lr=cfg.lr, seed=cfg.seed,
+    ), loss_fn=loss_fn, compute_dtype=dtype, device=device)
+    hist = algo.run()
+    return {"history": hist, "wall_s": time.time() - t0}
 
 
 def _simulation(cfg: ExperimentConfig, ds, bundle, **engine_kw):

@@ -22,3 +22,13 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
             )
         return torch.device("cuda")
     return torch.device(device)
+
+
+def driver_device(device: DeviceLike, *bundles) -> torch.device:
+    """``resolve_device(device)``, on which every model bundle of a driver
+    must keep its variables."""
+    dev = resolve_device(device)
+    for b in bundles:
+        if b.device != dev:
+            raise ValueError(f"model variables live on {b.device}, driver on {dev}")
+    return dev

@@ -144,8 +144,9 @@ _NOT_PORTED = (NotImplementedError, "ROADMAP")
 
 
 @pytest.mark.parametrize("extra,refusal", [
-    # the FedAvg-engine family is ported; decentralized is not yet
-    (["--algorithm", "decentralized"], _NOT_PORTED),
+    # the FedAvg-engine family and the standalone drivers are ported;
+    # splitnn is not yet
+    (["--algorithm", "splitnn"], _NOT_PORTED),
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--tp_degree", "2"],
      _NOT_PORTED),
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--mesh", "dp,mp"],
