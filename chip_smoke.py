@@ -121,13 +121,41 @@ Phases, in order; any failure exits non-zero:
              the kernel ResNet-56 in bf16, 19 conv launches per forward (18
              tensor-core per training forward); FedGKT on resnet8_56 +
              resnet56_server (``--epochs_server 1``, fp32, library convs),
-             which launches neither kernel.  Per driver the round (epoch)
+             which launches neither kernel; cuDNN's deterministic
+             algorithms pinned, and FedGKT run a second time, its round
+             records and final variables equal to the first run's bit for
+             bit.  Per driver the round (epoch)
              times and final metrics, all finite, and the gossip's
              consensus distance.  Then ``secure_weighted_sum`` of four
              ResNet-56-sized vectors card == CPU bitwise and within
              n/(2·scale) of the float64 weighted sum, ``lcc_coded_sum`` with
              worker 1 dropped == none dropped bitwise, and an int64
              ``randint`` over [0, 2^31 − 1) card == CPU bitwise.
+15. family — the rest of the algorithm family through ``experiments.run.main``
+             in fp32 (TF32 off, cuDNN deterministic), each number printed
+             with the card's name and power limit: SplitNN's ring over 4
+             CIFAR-10 stand-in clients of 512 (the McMahan CNN's halves,
+             batch 64, one epoch: seconds per client epoch, samples/s,
+             validation accuracy), each card step from the CPU's float64
+             state within 1e-3 of the float64 step, and the card's epoch
+             within twice as far from the CPU's float64 epoch as the CPU's
+             fp32 epochs from an init one ulp off land (the ring is
+             chaotic in fp32); VFL over a seeded 262,144 x 83
+             ``loan_processed.npz`` (2 parties, batch 256, one epoch:
+             steps/s, loss, AUC), the first 16 steps within 1e-5 of the
+             CPU's; FedNAS search + train stage at arch_order 1 and 2 (C 8,
+             4 layers, 4 clients x 16, batch 16, 2 rounds: seconds per
+             round, genotype), one order-2 search round (2 clients of 16
+             and 8, 16x16, batch 8, a pad-only batch) card fp32 against the
+             CPU's float64 round (run in a process of its own meanwhile):
+             variables within 0.05, alphas whose gradient is not near zero
+             within 0.05; and one round at darts_search's defaults (C 16,
+             8 layers, 32x32, 1 client x 1 step of 64, order 2: ms per
+             step, peak memory).  Neither kernel runs.
+             ``phase_family(controls=True)`` adds planted faults (a ring
+             shuffled as in epoch 1; FedNAS with equal client weights,
+             the valid batch one step off, no alpha step, a pad-only
+             batch that steps), which the gates must refuse.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -140,6 +168,8 @@ path (device busy time, idle share, top kernels).
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -277,6 +307,48 @@ STANDALONE_CASES = [
 # the card's fp32 round against the CPU's float64 one: max |Δ| of every leaf,
 # relative to the leaf's largest magnitude
 ZOO_ROUND_RTOL = 1e-4
+# [family]: the rest of the algorithm family through experiments/run.py's main,
+# fp32 on library convs, over 4 clients of the CIFAR-10 stand-in (homo).
+# SplitNN: 512 samples each, batch 64, one ring epoch (the McMahan CNN's
+# halves at full width: 32/64 channels, a 512-wide dense layer) at SGD lr
+# 0.003, where the loss falls (at 0.01 it rises past ln 10).  FedNAS: 16
+# samples each (one step of 16 a round), 2 rounds of search (the entry
+# point's darts_search(C=8, layers=4)) then 2 of train, at arch_order 1 and 2.
+FAMILY_COMMON = ["--dataset", "cifar10", "--client_num_in_total", "4",
+                 "--client_num_per_round", "4", "--partition_method", "homo", "--seed", "0"]
+SPLIT_ARGV = ["--algorithm", "splitnn", *FAMILY_COMMON, "--max_samples_per_client", "512",
+              "--max_test_samples", "512", "--batch_size", "64", "--comm_round", "1",
+              "--lr", "0.003"]
+NAS_ARGV = ["--algorithm", "fednas", "--stage", "train", *FAMILY_COMMON,
+            "--max_samples_per_client", "16", "--max_test_samples", "256", "--batch_size",
+            "16", "--comm_round", "2"]
+# [family] SplitNN: the fp32 ring is chaotic (a ReLU pre-activation within
+# fp32's rounding of zero takes the other side in float64, and the runs
+# part from there; the CPU's fp32 epoch from an init one ulp off lands as
+# far from float64 as the card's).  So each card step, taken from the CPU's
+# float64 state, is held to the float64 step within SPLIT_STEP_RTOL, and
+# the card's epoch to SPLIT_CHAOS x how far those one-ulp epochs land; a
+# ring shuffled as in epoch 1 lands far beyond (controls).  Readings:
+# PERF.md §6.
+SPLIT_STEP_RTOL, SPLIT_CHAOS = 1e-3, 2.0
+# VFL: a seeded loan_processed.npz of 262,144 rows (about a tenth of Lending
+# Club's) at the reference's 83 feature columns, a guest and a host, batch
+# 256, one epoch; the card's first VFL_CHECK_STEPS steps against the CPU's
+VFL_ROWS, VFL_BATCH, VFL_CHECK_STEPS, VFL_TOL = 262144, 256, 16, 1e-5
+# FedNAS, card fp32 against CPU float64: one order-2 round of the entry
+# point's net (C 8, 4 layers) over 2 CIFAR-10 stand-in clients of 16 and 8
+# samples cropped to 16x16, batch 8 (client 1's second batch pad-only).
+# Adam moves every alpha by ~arch_lr a step whatever its gradient's size,
+# so an alpha whose gradient is near zero (under NAS_MASK_TAU of its
+# leaf's largest at some step) follows rounding; and the float32 losses,
+# BatchNorm statistics and mean (as in JAX) put fp32 rounding into a
+# float64 run too.  The limits sit between the card's round and the
+# planted faults of phase_family's controls (readings: PERF.md §6).
+NAS_CHECK = (16, 8, 16, 8)  # clients' samples, crop, batch
+NAS_VARS_RTOL, NAS_ALPHA_RTOL, NAS_MASK_TAU = 0.05, 0.05, 0.1
+# one FedNAS search round at darts_search's defaults (C 16, 8 layers, 32x32):
+# 1 client x 1 step of batch 64 (the entry point's default batch), arch_order 2
+NAS_REF_CLIENTS, NAS_REF_STEPS, NAS_REF_BATCH = 1, 1, 64
 
 
 def augment_images(n: int):
@@ -1213,13 +1285,8 @@ def phase_zoo(profile: bool, device: str = "cuda"):
     # CPU's fp32 round ends 2.2e-3 of a leaf's largest magnitude from
     # float64 on near-zero GroupNorm biases, the card's 7.9e-5; PERF.md)
     def rel_diff(a, b):
-        worst, worst_abs = 0.0, 0.0
-        for coll in b:
-            for k, v in b[coll].items():
-                d = (a[coll][k].cpu().double() - v.double()).abs().max().item()
-                worst_abs = max(worst_abs, d)
-                worst = max(worst, d / max(v.abs().max().item(), 1e-30))
-        return worst, worst_abs
+        gaps = [leaf_gap(a[coll], b[coll]) for coll in b]
+        return max(g[0] for g in gaps), max(g[2] for g in gaps)
 
     models = {}
     for dataset, model, batch, lr, cap, tokens, classes, shape in ZOO:
@@ -1743,12 +1810,13 @@ def phase_algos(device: str = "cuda"):
 
 
 class _RoundTimer:
-    """Wraps ``cls.method`` while in use: the host seconds of each call
-    (each ends in a metric read-back, so the device has finished) and the
-    last instance it ran on."""
+    """Wraps ``cls.method`` (or a module's function) while in use: the host
+    seconds of each call (each ends in a metric read-back, so the device has
+    finished), the last instance (first argument) it ran on and its last
+    result."""
 
     def __init__(self, cls, method: str):
-        self.cls, self.method, self.secs, self.owner = cls, method, [], None
+        self.cls, self.method, self.secs, self.owner, self.last = cls, method, [], None, None
 
     def __enter__(self):
         orig = self.orig = getattr(self.cls, self.method)
@@ -1757,7 +1825,7 @@ class _RoundTimer:
             t0 = time.perf_counter()
             out = orig(obj, *a, **kw)
             self.secs.append(time.perf_counter() - t0)
-            self.owner = obj
+            self.owner, self.last = obj, out
             return out
         setattr(self.cls, self.method, timed)
         return self
@@ -1777,6 +1845,36 @@ def _ms_of(fn, device) -> tuple:
     if device == "cuda":
         torch.cuda.synchronize()
     return out, 1e3 * (time.perf_counter() - t0)
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms without autotuning, and torch's
+    deterministic algorithms (warn only), restored on the way out."""
+    import torch
+
+    saved = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled(),
+             torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved[:2]
+        torch.use_deterministic_algorithms(saved[2], warn_only=saved[3])
+
+
+def _same_tensors(a, b) -> bool:
+    """Two trees of tensors equal leaf for leaf, bit for bit."""
+    import torch
+
+    from fedml_tpu_torch.core import tree as treelib
+
+    la, lb = treelib.tree_leaves(a), treelib.tree_leaves(b)
+    return len(la) == len(lb) > 0 and all(x.dtype == y.dtype and torch.equal(x, y)
+                                          for x, y in zip(la, lb))
 
 
 def phase_standalone(device: str = "cuda"):
@@ -1822,7 +1920,7 @@ def phase_standalone(device: str = "cuda"):
              "turboaggregate": (TurboAggregateSimulation, "run_round"),
              "fedgkt": (FedGKT, "run_round")}
     rec, launches, tc_launches = {}, 0, 0
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
         for name, argv in STANDALONE_CASES:
             fwd = train_fwd[name] + (eval_fwd if name != "fedgkt" else 0)
             with _RoundTimer(*timed[name]) as timer:
@@ -1856,6 +1954,24 @@ def phase_standalone(device: str = "cuda"):
                      f"({TC_PER_FORWARD * train_fwd[name]} tensor-core)")
             if seen["flash_attention_fwd"]:
                 fail(f"standalone {name}: the path launched the flash kernel")
+            if name == "fedgkt":
+                gkt_first = (out["history"], timer.owner)
+        # FedGKT once more under the same flags: every round's record and the
+        # final variables of both nets, bit for bit
+        with _RoundTimer(FedGKT, "run_round") as timer:
+            out = run.main([*dict(STANDALONE_CASES)["fedgkt"], "--device", device,
+                            "--run_dir", os.path.join(tmp, "runs")])
+        first_hist, first = gkt_first
+        again = timer.owner
+        same_records = out["history"] == first_hist
+        same_vars = (_same_tensors(again.client_vars, first.client_vars)
+                     and _same_tensors(again.server_vars, first.server_vars))
+        print(f"[standalone] fedgkt run twice (deterministic cuDNN): every round's record "
+              f"equal {same_records}, final client and server variables equal bitwise "
+              f"{same_vars}; final {first_hist[-1]}")
+        if not (same_records and same_vars):
+            fail("standalone: FedGKT does not repeat on the card")
+        rec["fedgkt_repeats_bitwise"] = True
 
     # the secure sum of four ResNet-56-sized vectors, on the device and the CPU
     d = treelib.tree_ravel(resnet56_tpu(device="cpu").init(rng.PRNGKey(0))).numel()
@@ -1896,6 +2012,509 @@ def phase_standalone(device: str = "cuda"):
     return rec
 
 
+def _tree_as(tree, dtype, device=None):
+    """A tree of tensors (dicts, lists, tuples; a named tuple comes back a
+    plain one) with float leaves in ``dtype``, on ``device`` if given;
+    leaves that are not tensors as they are."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: _tree_as(v, dtype, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return (list if isinstance(tree, list) else tuple)(_tree_as(v, dtype, device)
+                                                           for v in tree)
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    tree = tree.detach() if device is None else tree.detach().to(device)
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def leaf_gap(got: dict, want: dict) -> tuple:
+    """(max over the leaves of two flat tensor dicts of max |Δ| over the
+    leaf's largest magnitude in ``want``, that leaf's name, the largest
+    max |Δ|)."""
+    worst, worst_abs = (0.0, ""), 0.0
+    for k, w in want.items():
+        d = (got[k].cpu().double() - w.cpu().double()).abs().max().item()
+        worst_abs = max(worst_abs, d)
+        worst = max(worst, (d / max(w.abs().max().item(), 1e-30), k))
+    return (*worst, worst_abs)
+
+
+def smi_line() -> str:
+    """The card's name and power limit as nvidia-smi prints them."""
+    return subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip()
+
+
+def _split_sim(like, device, dtype=None, bump=None):
+    """A fresh SplitNNSimulation with ``like``'s data and settings on
+    ``device``; its states and data in ``dtype`` if given; with ``bump``
+    (±inf) every parameter one ulp toward it."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.splitnn import HalfState, SplitNNSimulation
+    from fedml_tpu_torch.models.cnn import cnn_split_pair
+
+    # SPLIT_ARGV's CIFAR-10 has 10 classes
+    sim = SplitNNSimulation(*cnn_split_pair(10, like.bottom.input_shape, device=device),
+                            like.client_data, like.test_data, batch_size=like.batch_size,
+                            lr=like.lr, seed=like.seed, device=device)
+    if bump is not None:
+        def up(st):
+            return HalfState({k: torch.nextafter(v, torch.full_like(v, bump))
+                              for k, v in st.params.items()}, st.opt_state)
+        sim.client_states = [up(st) for st in sim.client_states]
+        sim.server_state = up(sim.server_state)
+    if dtype is not None:
+        sim.client_states = [HalfState(*_tree_as(st, dtype)) for st in sim.client_states]
+        sim.server_state = HalfState(*_tree_as(sim.server_state, dtype))
+        sim._data = [(x.to(dtype), y) for x, y in sim._data]
+        sim._test = (sim._test[0].to(dtype), sim._test[1])
+    return sim
+
+
+def _split_gap(a, b) -> float:
+    """The largest leaf gap over every client's bottom and the top."""
+    return max([leaf_gap(x.params, y.params)[0] for x, y in zip(a.client_states,
+                                                                 b.client_states)]
+               + [leaf_gap(a.server_state.params, b.server_state.params)[0]])
+
+
+def _family_splitnn(device, tmp, card, controls):
+    """SplitNN through ``run.main``: the ring epoch's seconds, per client,
+    samples/s and the validation accuracy.  Then the card against the
+    CPU's float64 epoch: from each of the CPU's states, cast to fp32, the
+    card takes the same step, within SPLIT_STEP_RTOL of each new leaf's
+    largest magnitude (the CPU's fp32 step printed beside it); and
+    ``run.main``'s fp32 epoch on the card within SPLIT_CHAOS × the farther
+    gap of the CPU's fp32 epochs from an init one ulp up and one down (how
+    far fp32 rounding alone carries this ring; at least ZOO_ROUND_RTOL).
+    ``controls``: also a card epoch shuffled as in epoch 1, which the
+    epoch gate must refuse."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.splitnn import HalfState, SplitNNSimulation
+    from fedml_tpu_torch.experiments import run
+
+    with _RoundTimer(SplitNNSimulation, "run_epoch") as timer:
+        out = run.main([*SPLIT_ARGV, "--device", device, "--run_dir", os.path.join(tmp, "runs")])
+    card_sim = timer.owner
+    hist = out["history"]
+    samples = sum(len(x) // card_sim.batch_size * card_sim.batch_size
+                  for x, _ in card_sim.client_data)
+    epoch_s = timer.secs[0]
+    r = {"epoch_s": epoch_s, "client_epoch_s": epoch_s / len(hist),
+         "samples_per_s": samples / epoch_s, "val_acc": [row["val_acc"] for row in hist],
+         "val_loss": [row["val_loss"] for row in hist]}
+    print(f"[family] splitnn ring epoch, {len(hist)} clients x "
+          f"{len(card_sim.client_data[0][0])} samples, batch {card_sim.batch_size}: "
+          f"{epoch_s:.3f} s ({card})")
+    print(f"[family] splitnn seconds per client epoch (validation included): "
+          f"{r['client_epoch_s']:.4f} ({card})")
+    print(f"[family] splitnn samples/s: {r['samples_per_s']:.1f} ({card})")
+    print(f"[family] splitnn validation accuracy per client: "
+          f"{[round(v, 4) for v in r['val_acc']]} ({card})")
+    if not all(math.isfinite(v) for v in r["val_loss"]):
+        fail(f"family splitnn: non-finite validation loss {r['val_loss']}")
+
+    ref = _split_sim(card_sim, "cpu", torch.float64)
+    host_step, card_step = ref._step, card_sim._step
+    cpu_step = _split_sim(card_sim, "cpu")._step
+    worst, worst_cpu, n = (0.0, ""), 0.0, 0
+
+    def lockstep(bstate, tstate, x, y):
+        nonlocal worst, worst_cpu, n
+        nb, nt, m = host_step(bstate, tstate, x, y)
+        n += 1
+        for dev, step in ((device, card_step), ("cpu", cpu_step)):
+            gb, gt, _ = step(HalfState(*_tree_as(bstate, torch.float32, dev)),
+                             HalfState(*_tree_as(tstate, torch.float32, dev)),
+                             x.to(dev, torch.float32), y.to(dev))
+            for half, got, want in (("bottom", gb, nb), ("top", gt, nt)):
+                rel, leaf, _ = leaf_gap(got.params, want.params)
+                if step is card_step:
+                    worst = max(worst, (rel, f"step {n} {half} {leaf}"))
+                else:
+                    worst_cpu = max(worst_cpu, rel)
+        return nb, nt, m
+
+    ref._step = lockstep
+    ref.run_epoch()
+    spread = 0.0
+    for toward in (math.inf, -math.inf):
+        bumped = _split_sim(card_sim, "cpu", bump=toward)
+        bumped.run_epoch()
+        spread = max(spread, _split_gap(bumped, ref))
+    epoch = _split_gap(card_sim, ref)
+    limit = max(ZOO_ROUND_RTOL, SPLIT_CHAOS * spread)
+    r.update(card_step_vs_f64=worst[0], worst_step_leaf=worst[1], cpu_step_vs_f64=worst_cpu,
+             card_epoch_vs_f64=epoch, cpu_fp32_ulp_epoch_vs_f64=spread, epoch_limit=limit)
+    print(f"[family] splitnn each of {n} card fp32 steps from the cpu's float64 state vs the "
+          f"float64 step, max |Δ| / max |leaf|: {worst[0]:.3g} ({worst[1]}; limit "
+          f"{SPLIT_STEP_RTOL:g}); the cpu's fp32 steps beside them {worst_cpu:.3g} ({card})")
+    print(f"[family] splitnn fp32 epoch vs the cpu's float64 epoch, max |Δ| / max |leaf| over "
+          f"every bottom and the top: card {epoch:.3g}; the cpu's fp32 epochs from an init one "
+          f"ulp up and one down, the farther {spread:.3g} (limit {SPLIT_CHAOS:g} x that, at "
+          f"least {ZOO_ROUND_RTOL:g}: {limit:.3g}) ({card})")
+    if not worst[0] <= SPLIT_STEP_RTOL:
+        fail(f"family splitnn: a card step is not the float64 step ({worst[0]:.3g})")
+    if not epoch <= limit:
+        fail(f"family splitnn: the card's fp32 epoch is not the float64 epoch ({epoch:.3g})")
+    if controls:
+        # the ring shuffled as in epoch 1: the epoch gate must see it
+        faulty = _split_sim(card_sim, device)
+        faulty.epoch = 1
+        faulty.run_epoch()
+        r["control_shuffle"] = gap = _split_gap(faulty, ref)
+        print(f"[family] splitnn control, the ring shuffled as in epoch 1: {gap:.3g} ({card})")
+        if gap <= limit:
+            fail("family splitnn: the epoch gate cannot tell a wrongly shuffled ring")
+    return r
+
+
+def _family_vfl(device, tmp, card):
+    """VFL through ``run.main`` over a seeded lending-club npz of VFL_ROWS
+    rows at the reference's feature width: steps/s, the last step's loss
+    and the AUC; then the card's first VFL_CHECK_STEPS steps against the
+    CPU's."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms import vfl
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.data.tabular import LOAN_ALL_FEATURES, load_lending_club
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.models.finance import vfl_party
+
+    data_dir = os.path.join(tmp, "lending_club")
+    os.makedirs(data_dir)
+    r64 = np.random.RandomState(0)
+    x = r64.standard_normal((VFL_ROWS, len(LOAN_ALL_FEATURES))).astype(np.float32)
+    w = r64.standard_normal(len(LOAN_ALL_FEATURES))
+    y = (x @ w + 0.5 * r64.standard_normal(VFL_ROWS) > 0).astype(np.int32)
+    np.savez(os.path.join(data_dir, "loan_processed.npz"), x=x, y=y)
+    del x, y
+    with _RoundTimer(vfl, "run_vfl") as run_timer, \
+            _RoundTimer(vfl.VerticalFederation, "fit") as fit_timer:
+        out = run.main(["--algorithm", "vfl", "--data_dir", data_dir, "--batch_size",
+                        str(VFL_BATCH), "--comm_round", "1", "--device", device,
+                        "--run_dir", os.path.join(tmp, "runs")])
+    final = out["history"][-1]
+    steps = len(fit_timer.secs)
+    loss = float(fit_timer.last[1])
+    r = {"rows": VFL_ROWS, "features": len(LOAN_ALL_FEATURES), "steps": steps,
+         "run_s": run_timer.secs[0], "steps_per_s": steps / run_timer.secs[0],
+         "loss": loss, "auc": final["auc"], "accuracy": final["accuracy"]}
+    print(f"[family] vfl {VFL_ROWS} x {len(LOAN_ALL_FEATURES)} table, 2 parties, batch "
+          f"{VFL_BATCH}, one epoch: {steps} steps in {r['run_s']:.3f} s, evaluation "
+          f"included ({card})")
+    print(f"[family] vfl steps/s: {r['steps_per_s']:.1f} ({card})")
+    print(f"[family] vfl last step's loss: {loss:.6f} ({card})")
+    print(f"[family] vfl test AUC: {final['auc']:.6f}, accuracy {final['accuracy']:.6f} "
+          f"({card})")
+    if not (math.isfinite(loss) and 0.5 < final["auc"] <= 1.0):
+        fail(f"family vfl: loss {loss}, AUC {final['auc']}")
+    # the card's first steps against the CPU's, on the same rows
+    xt, yt, splits = load_lending_club(data_dir)
+    n = VFL_CHECK_STEPS * VFL_BATCH
+    states = []
+    for dev in (device, "cpu"):
+        fed = vfl.VerticalFederation([vfl_party(s.stop - s.start, 16, device=dev)
+                                      for s in splits], lr=0.03, device=dev)
+        st = fed.init(rng.PRNGKey(0))
+        xs = [torch.from_numpy(xt[:n, s]).to(dev) for s in splits]
+        yd = torch.from_numpy(yt[:n]).to(dev)
+        for lo in range(0, n, VFL_BATCH):
+            st, _ = fed.fit(st, [xi[lo:lo + VFL_BATCH] for xi in xs], yd[lo:lo + VFL_BATCH])
+        states.append(st)
+    worst = 0.0
+    for c, h in zip(*states):
+        for k, v in h.params.items():
+            d = (c.params[k].cpu() - v).abs()
+            worst = max(worst, float((d / (VFL_TOL + VFL_TOL * v.abs())).max()))
+    r["card_vs_cpu"] = worst
+    print(f"[family] vfl first {VFL_CHECK_STEPS} steps card vs cpu: max |Δ| / (1e-5 + "
+          f"1e-5 |cpu|) = {worst:.3g} (limit 1) ({card})")
+    if not worst <= 1.0:
+        fail(f"family vfl: the card's steps are not the CPU's within {VFL_TOL:g}")
+    return r
+
+
+def _nas_check_search(device, dtype):
+    """The card-against-CPU FedNAS search (NAS_CHECK), its data,
+    variables and alphas in ``dtype``; every alpha gradient the round
+    takes is kept (on the CPU, float64) in ``grads_seen``."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fednas import FedNASConfig, FedNASSearch
+    from fedml_tpu_torch.core import optrepo
+    from fedml_tpu_torch.core.types import FedDataset
+    from fedml_tpu_torch.experiments.registry import load_data, shrink_dataset
+    from fedml_tpu_torch.models.darts.search import darts_search
+
+    big, small, crop, batch = NAS_CHECK
+    ds = shrink_dataset(load_data("cifar10", "", 2, "homo", 0.5, 0), big, 32)
+    idx = {0: ds.train_client_idx[0], 1: ds.train_client_idx[1][:small]}
+    ds = FedDataset(train_x=ds.train_x[:, :crop, :crop].astype(dtype), train_y=ds.train_y,
+                    test_x=ds.test_x[:, :crop, :crop].astype(dtype), test_y=ds.test_y,
+                    train_client_idx=idx, test_client_idx=None, num_classes=10)
+    search = FedNASSearch(darts_search(C=8, layers=4, image_size=crop, device=device), ds,
+                          FedNASConfig(num_clients=2, clients_per_round=2, batch_size=batch,
+                                       lr=0.025, arch_lr=3e-3, arch_order=2), device=device)
+    if dtype == np.float64:
+        search.variables = _tree_as(search.variables, torch.float64)
+        search.alphas = _tree_as(search.alphas, torch.float64)
+    search.grads_seen, a_opt = [], search.a_opt
+
+    def update(g, state, params):
+        search.grads_seen.append({k: v.detach().cpu().double() for k, v in g.items()})
+        return a_opt.update(g, state, params)
+
+    search.a_opt = optrepo.GradientTransformation(a_opt.init, update)
+    return search
+
+
+def _nas_reference(out_path: str) -> None:
+    """The NAS_CHECK round on the CPU in float64, run in a process of its
+    own beside the card's work (``_start_nas_reference``): the variables,
+    alphas and alpha gradients, as numpy arrays, pickled to ``out_path``."""
+    import pickle
+
+    import numpy as np
+    import torch
+
+    os.nice(10)  # behind the card's host thread, whose times the phase prints
+    torch.set_num_threads(4)
+    ref = _nas_check_search("cpu", np.float64)
+    ref.run_round()
+    with open(out_path, "wb") as f:
+        pickle.dump(_tree_map_leaves(lambda t: t.numpy(), {
+            "variables": ref.variables, "alphas": ref.alphas,
+            "grads_seen": ref.grads_seen}), f)
+
+
+def _start_nas_reference(out_path: str):
+    """``_nas_reference`` in a new Python process (this file imported as a
+    module, whatever ran it)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            f"chip_smoke._nas_reference({out_path!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=here)
+
+
+def _nas_reference_result(proc, out_path: str) -> dict:
+    import pickle
+
+    import torch
+
+    if proc.wait() != 0:
+        fail(f"family fednas: the CPU's float64 reference round exited {proc.returncode}")
+    with open(out_path, "rb") as f:
+        return _tree_map_leaves(torch.from_numpy, pickle.load(f))
+
+
+def _tree_map_leaves(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map_leaves(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map_leaves(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _nas_gaps(search, ref: dict) -> tuple:
+    """(the variables' largest leaf gap from ``ref``'s, that leaf, the
+    alphas' largest gap over the entries whose float64 gradient was at
+    least NAS_MASK_TAU of its leaf's largest at every alpha step of
+    ``ref``'s round, as a share of the leaf's largest magnitude)."""
+    import torch
+
+    var = max(leaf_gap(search.variables[c], ref["variables"][c])[:2]
+              for c in ref["variables"])
+    alpha = 0.0
+    for k, want in ref["alphas"].items():
+        keep = torch.ones(want.shape, dtype=torch.bool)
+        for g in ref["grads_seen"]:
+            keep &= g[k].abs() >= NAS_MASK_TAU * g[k].abs().max()
+        d = (search.alphas[k].cpu().double() - want).abs()[keep]
+        alpha = max(alpha, float(d.max()) / want.abs().max().item() if keep.any() else 0.0)
+    return (*var, alpha)
+
+
+def _nas_controls(device, ref, passes, card) -> dict:
+    """The NAS_CHECK round on the card with a planted fault each (equal
+    client weights, the valid batch one step off, no alpha step, a
+    pad-only batch that steps): the round gate must refuse every one."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms import fednas
+    from fedml_tpu_torch.core import optrepo
+
+    orig_mean, out = fednas._weighted_mean, {}
+
+    def repack(search, train=None, valid=None):
+        packs = search._packs
+
+        def planted(ids, round_idx):
+            pack, vpack = packs(ids, round_idx)
+            return (train(pack) if train else pack), (valid(vpack) if valid else vpack)
+        search._packs = planted
+
+    def equal_weights(search):
+        fednas._weighted_mean = lambda trees, w: orig_mean(trees, torch.full_like(w, 0.5))
+
+    def no_alpha_step(search):
+        search.a_opt = optrepo.GradientTransformation(
+            search.a_opt.init,
+            lambda g, s, p: ({k: torch.zeros_like(v) for k, v in g.items()}, s))
+
+    plants = {
+        "equal client weights": equal_weights,
+        "the valid batch one step off": lambda s: repack(s, valid=lambda v: dataclasses.replace(
+            v, **{f: np.roll(getattr(v, f), 1, 1) for f in ("x", "y", "mask")})),
+        "no alpha step": no_alpha_step,
+        "a pad-only batch that steps": lambda s: repack(s, train=lambda p: dataclasses.replace(
+            p, mask=np.ones_like(p.mask))),
+    }
+    for name, plant in plants.items():
+        faulty = _nas_check_search(device, np.float32)
+        plant(faulty)
+        try:
+            faulty.run_round()
+        finally:
+            fednas._weighted_mean = orig_mean
+        var, _, alpha = out[name] = _nas_gaps(faulty, ref)
+        print(f"[family] fednas control, {name}: variables {var:.3g}, alphas {alpha:.3g} "
+              f"({card})")
+        if passes(var, alpha):
+            fail(f"family fednas: the round gate cannot tell a round with {name}")
+    return out
+
+
+def _family_fednas(device, tmp, card, reference, controls):
+    """FedNAS through ``run.main`` at arch_order 1 and 2 (search, then the
+    train stage on the genotype): seconds per round of each stage and the
+    genotype.  Then one order-2 search round (NAS_CHECK) on the card in
+    fp32 against the CPU's in float64 (``reference``: the process of
+    ``_start_nas_reference`` and its output file): the variables within
+    NAS_VARS_RTOL of each leaf's largest magnitude, and the alphas within
+    NAS_ALPHA_RTOL where the float64 gradient is not near zero
+    (``_nas_gaps``); ``controls`` adds ``_nas_controls``.  Last, one round
+    at darts_search's defaults: ms per step and peak memory."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fednas import FedNASConfig, FedNASSearch
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.experiments.registry import load_data, shrink_dataset
+    from fedml_tpu_torch.models.darts.search import darts_search
+
+    r = {}
+    for order in (1, 2):
+        with _RoundTimer(FedNASSearch, "run_round") as timer:
+            out = run.main([*NAS_ARGV, "--arch_order", str(order), "--device", device,
+                            "--run_dir", os.path.join(tmp, "runs")])
+        search_s = timer.secs
+        train_s = [row["time_round"] for row in out["train_history"]]
+        final = out["train_history"][-1]
+        r[f"arch_order{order}"] = {"search_round_s": search_s, "train_round_s": train_s,
+                                   "genotype": out["genotype"],
+                                   "search_final": out["history"][-1], "train_final": final}
+        print(f"[family] fednas arch_order {order} search rounds (C 8, 4 layers, 4 clients "
+              f"x 1 step of 16): {[round(t, 3) for t in search_s]} s ({card})")
+        print(f"[family] fednas arch_order {order} train-stage rounds: "
+              f"{[round(t, 3) for t in train_s]} s; test_acc {final['test_acc']:.4f} "
+              f"({card})")
+        print(f"[family] fednas arch_order {order} genotype: {out['genotype']}")
+        if not all(math.isfinite(v) for k, v in final.items() if k.startswith(("test_",
+                                                                               "train_"))):
+            fail(f"family fednas arch_order {order}: non-finite {final}")
+
+    checked = _nas_check_search(device, np.float32)
+    _, round_ms = _ms_of(checked.run_round, device)
+    t0 = time.perf_counter()
+    ref = _nas_reference_result(*reference)
+    wait_s = time.perf_counter() - t0
+    var, leaf, alpha = _nas_gaps(checked, ref)
+
+    def passes(v, a):
+        return v <= NAS_VARS_RTOL and a <= NAS_ALPHA_RTOL
+
+    big, small, crop, batch = NAS_CHECK
+    print(f"[family] fednas order-2 round, 2 clients of {big} and {small} ({crop}x{crop}, "
+          f"batch {batch}, a pad-only batch), card fp32 vs cpu float64 (waited {wait_s:.1f} s "
+          f"for it): variables {var:.3g} ({leaf}; limit {NAS_VARS_RTOL:g}), alphas where the "
+          f"gradient is not near zero {alpha:.3g} (limit {NAS_ALPHA_RTOL:g}); card round "
+          f"{round_ms:.1f} ms ({card})")
+    if not passes(var, alpha):
+        fail("family fednas: the card's search round is not the CPU's float64 round")
+    r["card_vs_f64"] = {"variables": var, "leaf": leaf, "alphas": alpha, "round_ms": round_ms,
+                        "reference_wait_s": wait_s}
+    if controls:
+        r["card_vs_f64"]["controls"] = _nas_controls(device, ref, passes, card)
+
+    # darts_search's defaults (C 16, 8 layers, 32x32), arch_order 2
+    ds = shrink_dataset(load_data("cifar10", "", NAS_REF_CLIENTS, "homo", 0.5, 0),
+                        NAS_REF_STEPS * NAS_REF_BATCH, 64)
+    search = FedNASSearch(darts_search(device=device), ds, FedNASConfig(
+        num_clients=NAS_REF_CLIENTS, clients_per_round=NAS_REF_CLIENTS,
+        batch_size=NAS_REF_BATCH, arch_order=2), device=device)
+    if device == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _, round_ms = _ms_of(search.run_round, device)
+    steps = NAS_REF_CLIENTS * NAS_REF_STEPS
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else float("nan")
+    r["reference_geometry"] = {"round_ms": round_ms, "ms_per_step": round_ms / steps,
+                               "peak_gib": peak}
+    print(f"[family] fednas search at darts_search's defaults (C 16, 8 layers, 32x32), "
+          f"arch_order 2, {NAS_REF_CLIENTS} x {NAS_REF_STEPS} client steps of "
+          f"{NAS_REF_BATCH}: {round_ms:.1f} ms per round ({card})")
+    print(f"[family] fednas ms per search step (packing and aggregation included): "
+          f"{round_ms / steps:.1f} ({card})")
+    print(f"[family] fednas peak device memory: {peak:.3f} GiB ({card})")
+    return r
+
+
+def phase_family(device: str = "cuda", controls: bool = False):
+    """The rest of the algorithm family through ``experiments.run.main``
+    (``_family_splitnn``, ``_family_vfl``, ``_family_fednas``), in fp32 (TF32
+    off) with the deterministic flags pinned, each held against a CPU run;
+    the CPU's float64 FedNAS round runs in a process of its own beside
+    FedNAS's ``run.main`` calls.
+    Neither kernel of the JAX package's Pallas paths is launched.
+    ``controls`` adds the gates' planted-fault runs; ``device`` "cpu"
+    rehearses the phase without a card."""
+    import tempfile
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t0 = time.perf_counter()
+    reset_launches()
+    with tempfile.TemporaryDirectory() as tmp, deterministic():
+        rec["splitnn"] = _family_splitnn(device, tmp, card, controls)
+        rec["vfl"] = _family_vfl(device, tmp, card)
+        out_path = os.path.join(tmp, "nas_reference.pkl")
+        proc = _start_nas_reference(out_path)
+        try:
+            rec["fednas"] = _family_fednas(device, tmp, card, (proc, out_path), controls)
+        finally:
+            proc.kill()
+            proc.wait()
+    seen = read_launches()
+    rec["launches"] = seen
+    rec["phase_s"] = time.perf_counter() - t0
+    print(f"[family] kernel launches in the phase: conv3x3_mxu {seen['conv3x3_mxu']}, "
+          f"flash_attention_fwd {seen['flash_attention_fwd']} (expected 0 and 0) ({card})")
+    print(f"[family] phase time: {rec['phase_s']:.1f} s ({card})")
+    if seen["conv3x3_mxu"] or seen["flash_attention_fwd"]:
+        fail(f"family: a path launched a kernel of the JAX package's Pallas paths: {seen}")
+    return rec
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write every per-case number here as JSON")
@@ -1928,6 +2547,7 @@ def main() -> int:
     zoo_rec = phase_zoo(args.profile)
     algos_rec = phase_algos()
     standalone_rec = phase_standalone()
+    family_rec = phase_family()
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -1969,10 +2589,7 @@ def main() -> int:
         "bound_by": "bytes" if bench["bytes_ms"] >= bench["ops_ms"] else "operations",
         "library_ms": BENCH_LAYERS * bench["library_ms"],
     })
-    smi = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = smi_line()
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"gpu": smi, "build_s": build_s, "cases": cases,
@@ -1980,7 +2597,7 @@ def main() -> int:
                        "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
                        "sim": sim_rec, "init": init_rec, "compress": compress_rec,
                        "pack": pack_rec, "zoo": zoo_rec, "algos": algos_rec,
-                       "standalone": standalone_rec,
+                       "standalone": standalone_rec, "family": family_rec,
                        "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -167,6 +167,19 @@ def scale_by_rss(eps: float = 1e-7) -> GradientTransformation:
     return GradientTransformation(init, update)
 
 
+def clip_by_global_norm(max_norm: float) -> GradientTransformation:
+    """optax.clip_by_global_norm: every leaf times ``max_norm / ‖g‖`` where
+    the global norm reaches ``max_norm``."""
+    def update(g, state, params):
+        del params
+        norm = treelib.tree_norm(g)
+        keep = norm < max_norm
+        return treelib.tree_map(
+            lambda v: torch.where(keep, v, v / norm.to(v.dtype) * max_norm), g), state
+
+    return GradientTransformation(_empty, update)
+
+
 def add_decayed_weights(weight_decay: float) -> GradientTransformation:
     return GradientTransformation(
         _empty, lambda g, s, p: (treelib.tree_map(lambda gi, pi: gi + weight_decay * pi,

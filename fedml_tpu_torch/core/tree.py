@@ -58,6 +58,11 @@ def tree_sq_norm(tree: Tree) -> torch.Tensor:
     return sum(leaf.float().square().sum() for leaf in tree_leaves(tree))
 
 
+def tree_norm(tree: Tree) -> torch.Tensor:
+    """The global L2 norm of every leaf, in fp32 (optax's ``global_norm``)."""
+    return torch.sqrt(tree_sq_norm(tree))
+
+
 def tree_cast_floats(tree: Tree, dtype: torch.dtype) -> Tree:
     """Cast floating-point leaves only (mixed-precision compute casts;
     integer leaves pass through)."""

@@ -25,20 +25,24 @@ dataset's task loss; the multi-label one adds ``test_precision`` and
 ``SymmetricTopologyManager(n, min(2, n − 1))``, worker 0 evaluated),
 ``turboaggregate`` (the secure sum over the field) and ``fedgkt``
 (``resnet8_56`` clients, ``resnet56_server``; ``--epochs_server``,
-``--temperature``, ``--alpha_kd``), their history logged after the run;
-``--checkpoint_every/--checkpoint_dir/--resume``
+``--temperature``, ``--alpha_kd``); the rest of the algorithm family,
+``splitnn`` (the ring over the registry dataset's clients, the McMahan
+CNN cut at its flatten), ``vfl`` (a guest and a host over the
+lending-club table) and ``fednas`` (the DARTS search, ``--arch_order 1|2``,
+then with ``--stage train`` the FedAvg engine on the genotype); their
+history logged after the run; ``--checkpoint_every/--checkpoint_dir/--resume``
 (the FedAvg-engine family), ``--crash_at_round`` with the JAX package's
 semantics, and ``--compress/--compress_ef`` (update compression with
 error feedback) on the FedAvg engine's own round kernel (FedNova builds
-its own and refuses it).  ``fednas``, ``splitnn``, ``vfl`` and
-``base_framework``, and the knobs whose machinery is not ported yet
-(``tp_degree``/``sp_degree``/``mesh``), raise ``NotImplementedError``
-naming their ROADMAP item; so does ``--compress`` outside the FedAvg
-engine, which the JAX package ignores there.  ``--conv_variant kernel``
-(the port's own flag) runs ResNet-56 with every 3x3 conv on the Hopper
-kernel (centralized, decentralized and turboaggregate too; fedgkt
-refuses it and ``--compute_dtype``).  ``--ci 1`` shrinks everything for smoke
-runs.  ``main`` writes ``<run_dir>/metrics.jsonl``
+its own and refuses it).  ``base_framework`` and the knobs whose
+machinery is not ported yet (``tp_degree``/``sp_degree``/``mesh``) raise
+``NotImplementedError`` naming their ROADMAP item; so does ``--compress``
+outside the FedAvg engine, which the JAX package ignores there.
+``--conv_variant kernel`` (the port's own flag) runs ResNet-56 with every
+3x3 conv on the Hopper kernel (centralized, decentralized and
+turboaggregate too; fedgkt, splitnn, vfl and fednas build their own
+models and refuse it and ``--compute_dtype``).  ``--ci 1`` shrinks
+everything for smoke runs.  ``main`` writes ``<run_dir>/metrics.jsonl``
 through ``MetricsLogger``.
 """
 
@@ -222,11 +226,11 @@ _RESUMABLE = frozenset((
 # no codec stage)
 _STANDALONE = frozenset(("centralized", "decentralized", "turboaggregate", "fedgkt"))
 
+# the drivers that build their own models (in float32, on library convs)
+_OWN_MODELS = frozenset(("fedgkt", "splitnn", "vfl", "fednas"))
+
 # what is still to port, and the ROADMAP item that names it
 _UNPORTED = {
-    "fednas": "queue A item 4: the algorithm family (fednas.py, models/darts/)",
-    "splitnn": "queue A item 4: the algorithm family (splitnn.py)",
-    "vfl": "queue A item 4: the algorithm family (vfl.py, models/finance.py)",
     "base_framework": "queue A item 5: the cross-device runtime (comm/)",
 }
 
@@ -245,11 +249,12 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
             f"--compress/--compress_ef on {cfg.algorithm}: only the FedAvg "
             "engine's round compresses; the JAX package's other drivers do "
             "not (ROADMAP.md, queue C4)")
-    if cfg.algorithm == "fedgkt" and (cfg.conv_variant or cfg.compute_dtype):
+    if cfg.algorithm in _OWN_MODELS and (cfg.conv_variant or cfg.compute_dtype):
+        # the JAX entry point ignores --compute_dtype for these (ROADMAP C4)
         raise ValueError(
-            "fedgkt builds its own pair (resnet8_56 clients, resnet56_server) on "
-            "library convs in float32: --conv_variant and --compute_dtype do not "
-            f"apply (got {cfg.conv_variant!r}, {cfg.compute_dtype!r})")
+            f"{cfg.algorithm} builds its own models on library convs in float32: "
+            "--conv_variant and --compute_dtype do not apply (got "
+            f"{cfg.conv_variant!r}, {cfg.compute_dtype!r})")
 
 
 def _fedavg_config(cfg: ExperimentConfig, ds, **override):
@@ -283,16 +288,25 @@ def run_experiment(cfg: ExperimentConfig, log_fn=print, metrics=None) -> dict:
     out = _dispatch(cfg, log_fn, metrics, t0)
     if cfg.algorithm not in _METRICS_NATIVE:
         # the drivers without a metrics sink of their own: their history
-        # rows are logged after the run
+        # rows are logged after the run.  fednas --stage train logged its
+        # train rounds live under the search stage's round indices, so the
+        # search rows go in as kind-tagged records: one plain round stream
+        # per file
+        search_aside = "train_history" in out
         for row in out.get("history") or []:
             if isinstance(row, dict):
-                metrics.log(row, step=row.get("round"))
+                if search_aside:
+                    metrics.log({"kind": "search_round", **row})
+                else:
+                    metrics.log(row, step=row.get("round"))
     return out
 
 
 def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
     """Build data, model and simulation, and run."""
     device = resolve_device(cfg.device or None)
+    if cfg.algorithm == "vfl":  # vertical FL reads its own tabular data
+        return _run_vfl(cfg, device, t0)
     ds = shrink_dataset(
         load_data(cfg.dataset, cfg.data_dir, cfg.client_num_in_total,
                   cfg.partition_method, cfg.partition_alpha, cfg.seed),
@@ -301,6 +315,10 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
     loss_fn = task_loss_for_dataset(cfg.dataset)
     if cfg.algorithm == "fedgkt":
         return _run_fedgkt(cfg, ds, device, t0)
+    if cfg.algorithm == "splitnn":
+        return _run_splitnn(cfg, ds, device, t0)
+    if cfg.algorithm == "fednas":
+        return _run_fednas(cfg, ds, device, t0, log_fn, metrics)
     if cfg.algorithm == "fedllm":
         # federated transformer fine-tuning over token sequences
         from fedml_tpu_torch.models.transformer import transformer_lm
@@ -357,6 +375,80 @@ def _run_fedgkt(cfg: ExperimentConfig, ds, device, t0) -> dict:
         ), device=device)
     hist = algo.run()
     return {"history": hist, "wall_s": time.time() - t0}
+
+
+def _run_vfl(cfg: ExperimentConfig, device, t0) -> dict:
+    """Vertical FL over the lending-club table (the stand-in without the
+    files): a guest and a host, 16-wide branches.  The shrink knobs cap
+    the table, train rows plus test rows, since the parties share rows;
+    the last ``max(32, n // 5)`` rows are the test set."""
+    from fedml_tpu_torch.algorithms.vfl import VerticalFederation, run_vfl
+    from fedml_tpu_torch.data.tabular import load_lending_club
+    from fedml_tpu_torch.models.finance import vfl_party
+
+    x, y, splits = load_lending_club(cfg.data_dir or "./data/lending_club_loan")
+    if cfg.max_samples_per_client:
+        cap = (cfg.max_samples_per_client * cfg.client_num_in_total
+               + (cfg.max_test_samples or 64))
+        x, y = x[:cap], y[:cap]
+    n_test = max(32, len(y) // 5)
+    xs = [x[:, s] for s in splits]
+    fed = VerticalFederation([vfl_party(xi.shape[1], 16, device=device) for xi in xs],
+                             lr=cfg.lr, device=device)
+    _, hist = run_vfl(fed, [xi[:-n_test] for xi in xs], y[:-n_test],
+                      [xi[-n_test:] for xi in xs], y[-n_test:],
+                      epochs=cfg.comm_round, batch_size=cfg.batch_size)
+    return {"history": hist, "wall_s": time.time() - t0}
+
+
+def _run_splitnn(cfg: ExperimentConfig, ds, device, t0) -> dict:
+    """SplitNN's ring over the registry dataset's clients: the McMahan CNN
+    cut at its flatten, one ring epoch per ``--comm_round``."""
+    from fedml_tpu_torch.algorithms.splitnn import SplitNNSimulation
+    from fedml_tpu_torch.models.cnn import cnn_split_pair
+
+    bottom, top = cnn_split_pair(ds.num_classes, ds.train_x.shape[1:], device=device)
+    parts = [(ds.train_x[idx], ds.train_y[idx]) for idx in ds.train_client_idx.values()]
+    sim = SplitNNSimulation(bottom, top, parts, test_data=(ds.test_x, ds.test_y),
+                            batch_size=cfg.batch_size, lr=cfg.lr, seed=cfg.seed,
+                            device=device)
+    hist = []
+    for _ in range(cfg.comm_round):
+        hist.extend(sim.run_epoch())
+    return {"history": hist, "wall_s": time.time() - t0}
+
+
+def _run_fednas(cfg: ExperimentConfig, ds, device, t0, log_fn, metrics) -> dict:
+    """The DARTS search (``darts_search(C=8, layers=4)``), then with
+    ``--stage train`` the FedAvg engine on the searched genotype, with the
+    reference's train-stage SGD (momentum, wd, clip 5)."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.algorithms.fednas import (FedNASConfig, FedNASSearch,
+                                                   fednas_train_stage)
+    from fedml_tpu_torch.models.darts.search import darts_search
+
+    img = ds.train_x.shape[1]
+    chans = int(ds.train_x.shape[-1])
+    search = FedNASSearch(
+        darts_search(C=8, num_classes=ds.num_classes, layers=4, image_size=img,
+                     in_channels=chans, device=device),
+        ds, FedNASConfig(
+            num_clients=ds.num_clients, comm_rounds=cfg.comm_round, epochs=cfg.epochs,
+            batch_size=cfg.batch_size, lr=cfg.lr, lr_min=cfg.lr_min, arch_lr=cfg.arch_lr,
+            lambda_train_regularizer=cfg.lambda_train_regularizer,
+            arch_order=cfg.arch_order, seed=cfg.seed), device=device)
+    hist = search.run()
+    genotype = search.genotype()
+    out = {"history": hist, "genotype": str(genotype), "wall_s": time.time() - t0}
+    if cfg.stage == "train":
+        sim = fednas_train_stage(genotype, ds, FedAvgConfig(
+            num_clients=ds.num_clients, clients_per_round=cfg.client_num_per_round,
+            comm_rounds=cfg.comm_round, epochs=cfg.epochs, batch_size=cfg.batch_size,
+            lr=cfg.lr, seed=cfg.seed, momentum=cfg.momentum or 0.9, weight_decay=cfg.wd,
+            grad_clip=5.0), C=8, layers=4, image_size=img, in_channels=chans,
+            lr_min=cfg.lr_min, metrics=metrics, device=device)
+        out["train_history"] = sim.run(log_fn=log_fn)
+    return out
 
 
 def _run_standalone(cfg: ExperimentConfig, ds, bundle, loss_fn, device, t0) -> dict:

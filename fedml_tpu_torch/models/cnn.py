@@ -9,8 +9,9 @@
 NHWC activations and HWIO kernels with a bias, as the flax modules; the
 convolutions are the library's (``F.conv2d``), as XLA's are in the JAX
 package.  The flatten before the dense layers is over NHWC, so a flax
-``Dense_0`` kernel carries over unchanged.  The SplitNN halves
-(``cnn_split_pair``) are not ported yet.
+``Dense_0`` kernel carries over unchanged.  ``cnn_split_pair`` cuts
+the McMahan CNN at that flatten into SplitNN's client bottom and server
+top.
 """
 
 from __future__ import annotations
@@ -93,3 +94,49 @@ def cnn_dropout(only_digits: bool = False, side: int = 28,
         module=CNNDropOut(only_digits=only_digits, side=side),
         input_shape=(side, side, 1), device=resolve_device(device),
         needs_dropout_rng=True)
+
+
+class _CNNBottom(nn.Module):
+    """Conv half of the McMahan CNN, the SplitNN client side: a flat
+    ``[B, side²·c]`` input becomes ``[B, side, side, c]``; the output is
+    the NHWC flatten the top's ``Dense_0`` reads."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.Conv_0 = Conv(channels, 32, 5, use_bias=True)
+        self.Conv_1 = Conv(32, 64, 5, use_bias=True)
+
+    def forward(self, x, train: bool = False, updates: Optional[dict] = None):
+        del train, updates
+        if x.ndim == 2:
+            side = int(x.shape[-1] ** 0.5)
+            x = x.reshape(x.shape[0], side, side, -1)
+        x = max_pool_2x2(torch.relu(self.Conv_0(x)))
+        x = max_pool_2x2(torch.relu(self.Conv_1(x)))
+        return x.reshape(x.shape[0], -1)
+
+
+class _CNNTop(nn.Module):
+    def __init__(self, features: int, num_classes: int = 10):
+        super().__init__()
+        self.Dense_0 = Dense(features, 512)
+        self.Dense_1 = Dense(512, num_classes)
+
+    def forward(self, x, train: bool = False, updates: Optional[dict] = None):
+        del train, updates
+        return self.Dense_1(torch.relu(self.Dense_0(x)))
+
+
+def cnn_split_pair(num_classes: int, input_shape, device: DeviceLike = None) -> tuple:
+    """(bottom, top) ModelBundles for SplitNN over image data: ``[side,
+    side, c]`` images or flat ``[side²·c]`` rows."""
+    dev = resolve_device(device)
+    if len(input_shape) == 1:
+        side = int(input_shape[0] ** 0.5)
+        channels = input_shape[0] // (side * side)
+    else:
+        side, channels = input_shape[0], input_shape[-1]
+    feat = (side // 4) * (side // 4) * 64
+    return (ModelBundle(module=_CNNBottom(channels), input_shape=tuple(input_shape),
+                        device=dev),
+            ModelBundle(module=_CNNTop(feat, num_classes), input_shape=(feat,), device=dev))

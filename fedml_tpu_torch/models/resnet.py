@@ -27,21 +27,26 @@ class Conv(nn.Module):
     """flax ``nn.Conv``: NHWC input, HWIO ``kernel``, symmetric padding
     ``padding`` (default ``k // 2``: flax's ``SAME`` at stride 1, and the
     explicit ``k // 2`` of the ResNets at stride 2), a ``bias`` with
-    ``use_bias``."""
+    ``use_bias``; ``groups`` is flax's ``feature_group_count`` (the kernel
+    is ``[k, k, cin // groups, cout]``) and ``dilation`` its
+    ``kernel_dilation``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: Optional[int] = None, use_bias: bool = False):
+                 padding: Optional[int] = None, use_bias: bool = False,
+                 groups: int = 1, dilation: int = 1):
         super().__init__()
         self.stride = stride
         self.padding = k // 2 if padding is None else padding
-        self.kernel = meta_param(k, k, cin, cout)
+        self.groups = groups
+        self.dilation = dilation
+        self.kernel = meta_param(k, k, cin // groups, cout)
         self.bias = meta_param(cout) if use_bias else None
 
     def forward(self, x):
         w = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
-                     padding=self.padding)
+                     padding=self.padding, dilation=self.dilation, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
@@ -52,15 +57,17 @@ class BatchNorm(nn.Module):
     ``max(E[x²] - E[x]², 0)``; running stats become
     ``0.9·ra + 0.1·batch`` with the BIASED variance and are written to
     ``updates``.  The normalization runs in fp32 and is cast to the
-    promoted dtype of (x, scale, bias), as flax's ``_normalize`` does."""
+    promoted dtype of (x, scale, bias), as flax's ``_normalize`` does.
+    ``affine=False`` is flax's ``use_scale=use_bias=False``: no
+    parameters, only the statistics."""
 
     momentum = 0.9
     epsilon = 1e-5
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, affine: bool = True):
         super().__init__()
-        self.scale = meta_param(c)
-        self.bias = meta_param(c)
+        self.scale = meta_param(c) if affine else None
+        self.bias = meta_param(c) if affine else None
         self.register_buffer("mean", torch.empty(c, device="meta"))
         self.register_buffer("var", torch.empty(c, device="meta"))
 
@@ -75,8 +82,10 @@ class BatchNorm(nn.Module):
             updates[self.state_prefix + "var"] = m * self.var + (1 - m) * var
         else:
             mean, var = self.mean, self.var
-        mul = torch.rsqrt(var + self.epsilon) * self.scale
-        y = (x - mean) * mul + self.bias
+        mul = torch.rsqrt(var + self.epsilon)
+        if self.scale is None:
+            return ((x - mean) * mul).to(x.dtype)
+        y = (x - mean) * (mul * self.scale) + self.bias
         dtype = torch.promote_types(
             torch.promote_types(x.dtype, self.scale.dtype), self.bias.dtype)
         return y.to(dtype)

@@ -189,12 +189,16 @@ def test_run_py_crash_then_resume_reproduces_the_uninterrupted_run(tmp_path):
 
 
 def test_run_py_crash_exits_137(tmp_path):
-    """The injected crash ends the process with 137, as a SIGKILL would."""
+    """The injected crash ends the process with 137, as a SIGKILL would.
+    The process runs on one torch thread, as this file's tests do: on a
+    machine whose cores other test workers keep busy, a pool of a thread
+    per core can take minutes where one thread takes seconds."""
     proc = subprocess.run(
         [sys.executable, "-m", "fedml_tpu_torch.experiments.run",
          *_run_argv(tmp_path / "ck", "--checkpoint_every", "1", "--crash_at_round", "1",
                     "--run_dir", str(tmp_path / "r"))],
-        capture_output=True, text=True, timeout=300)
+        capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert proc.returncode == 137, proc.stderr[-2000:]
     assert os.listdir(tmp_path / "ck") == ["ckpt_1.npz"]
 

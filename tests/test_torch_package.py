@@ -78,7 +78,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package(path):
                 f"{path}: imports {name}")
 
 
-def test_default_device_entry_points_raise_without_a_gpu():
+def test_default_device_entry_points_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid")
     from fedml_tpu_torch.algorithms.fedavg import (
@@ -116,6 +116,23 @@ def test_default_device_entry_points_raise_without_a_gpu():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run.run_experiment(run.ExperimentConfig(
             algorithm="fedllm", dataset="fed_shakespeare", ci=1))
+
+    # the rest of the algorithm family: the entry point, the shims'
+    # ``main`` and the model factories
+    from fedml_tpu_torch.models.cnn import cnn_split_pair
+    from fedml_tpu_torch.models.darts.genotypes import DARTS_V2
+    from fedml_tpu_torch.models.darts.network import darts_network
+    from fedml_tpu_torch.models.darts.search import darts_search
+    from fedml_tpu_torch.models.finance import vfl_party
+
+    for algo in ("splitnn", "vfl", "fednas"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run.main(["--algorithm", algo, "--ci", "1", "--run_dir", str(tmp_path)])
+    for factory in (lambda: cnn_split_pair(10, (28, 28, 1)), lambda: vfl_party(4, 2),
+                    lambda: darts_search(C=4, layers=2, steps=2, multiplier=2),
+                    lambda: darts_network(DARTS_V2, C=4, layers=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            factory()
 
 
 def test_converter_round_trips_the_flax_tree():
