@@ -54,8 +54,8 @@ Phases, in order; any failure exits non-zero:
              route.
 
 6. rng     — every RNG_CASES draw (threefry bits, uniform, bernoulli,
-             randint, permutation at n 1536 and 15360, cifar_augment on 64
-             fixed images) on the card, held bitwise against the same call
+             randint, permutation at n 1536 and 15360, cifar_augment and
+             CINIC-10's augment without Cutout on 64 fixed images) on the card, held bitwise against the same call
              on the CPU and against jax 0.9.0's known answers
              (tests/threefry_known_answers.json).
 7. north_star — ``fedml_tpu_torch.bench.build_north_star`` at its full cut
@@ -72,7 +72,11 @@ Phases, in order; any failure exits non-zero:
 9. init    — the seeded init (flax's variables under ``PRNGKey(0)``) of
              ResNet-56, a small transformer and the zoo's models (the
              LSTMs' orthogonal kernels: a host QR) drawn on the card,
-             bitwise against the same draw on the CPU.
+             bitwise against the same draw on the CPU; the cross-silo
+             families at full width (vgg16_bn, mobilenet, mobilenet_v3,
+             efficientnet at 100 classes, 32 px) drawn on the card only,
+             each leaf's sha256 against flax's (tests/silo_init_digests.json),
+             with the draw's seconds and peak memory.
 10. compress — [sim]'s configuration with the int8 codec and error
              feedback: ``run()``, crash + ``resume()`` and
              ``run_fused_sampled`` end bit-identical (variables and
@@ -101,7 +105,27 @@ Phases, in order; any failure exits non-zero:
              float64 (the CPU's fp32 round printed beside it), and the
              dropout mask card == CPU bitwise.  No zoo path launches the
              conv or flash kernel.
-13. algos  — the FedAvg-engine family through ``experiments.run.main`` on
+13. silo   — FedML's cross-silo benchmark rows through
+             ``experiments.run.main`` (FedAvg, SGD lr 1e-3 wd 1e-3, batch 64,
+             LDA alpha 0.5, bf16, augmentation on) at full width: ResNet-56
+             on the conv kernel on cifar100 and cinic10, mobilenet on both,
+             vgg16_bn, mobilenet_v3 and efficientnet on cifar100; 4 clients
+             of <= 128 samples, 2 rounds (the first a warm-up), 256 test
+             samples; per pair the parameter count, median round seconds,
+             samples/s, final test accuracy and loss (finite) and the conv
+             kernel's launches per forward (19 for ResNet-56, 18 of them
+             tensor-core in each bf16 training forward; 0 for the others,
+             and no flash launch).  Then one make_round_fn round of 2
+             clients x 2 steps of 8 per new family, initialized on the card
+             and copied to the CPU: card fp32 (TF32 off) within the larger of
+             1e-4 and twice the spread of the CPU's fp32 rounds (from the
+             init and one ulp off) of the CPU's float64 round, each leaf's
+             max |Δ| over max(1, its largest magnitude); EfficientNet's
+             drop-connect mask
+             card == CPU bitwise.  ``phase_silo(controls=True)`` adds planted
+             faults (EfficientNet with symmetric padding at stride 2, VGG
+             flattened in NCHW order) that the round gate must refuse.
+14. algos  — the FedAvg-engine family through ``experiments.run.main`` on
              full-width ResNet-56 with ``--conv_variant kernel`` (bf16,
              CIFAR-10 stand-in, 4 clients x 2 steps x 64, 2 rounds, a
              checkpoint every round): fedavg, FedProx (mu 0 and 0.01),
@@ -114,7 +138,7 @@ Phases, in order; any failure exits non-zero:
              round 1 within 1e-6, FedNova momentum 0 (equal steps) == FedAvg
              after round 1 within 1e-5, and the weak-DP noise of a (seed,
              round, slot) card == CPU bitwise.
-14. standalone — the drivers beside the FedAvg engine through
+15. standalone — the drivers beside the FedAvg engine through
              ``experiments.run.main`` at [algos]' cut (no checkpoints):
              centralized (the whole 5,000-image stand-in per epoch, as the
              JAX driver trains), decentralized gossip and TurboAggregate on
@@ -131,7 +155,7 @@ Phases, in order; any failure exits non-zero:
              n/(2·scale) of the float64 weighted sum, ``lcc_coded_sum`` with
              worker 1 dropped == none dropped bitwise, and an int64
              ``randint`` over [0, 2^31 − 1) card == CPU bitwise.
-15. family — the rest of the algorithm family through ``experiments.run.main``
+16. family — the rest of the algorithm family through ``experiments.run.main``
              in fp32 (TF32 off, cuDNN deterministic), each number printed
              with the card's name and power limit: SplitNN's ring over 4
              CIFAR-10 stand-in clients of 512 (the McMahan CNN's halves,
@@ -227,6 +251,7 @@ RNG_CASES = [
     ("permutation_s4_1536", "permutation", 4, {"n": 1536}),      # one sort pass
     ("permutation_s5_15360", "permutation", 5, {"n": 15360}),    # two sort passes
     ("cifar_augment_s6_64", "cifar_augment", 6, {"images": 64}),
+    ("cinic_augment_s7_64", "cinic_augment", 7, {"images": 64}),   # cutout=None
 ]
 RNG_ANSWERS = "tests/threefry_known_answers.json"
 
@@ -247,6 +272,45 @@ ZOO = [
     ("stackoverflow_lr", "lr", 10, 0.03, 64, None, 500, (10000,)),
 ]
 ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 10, 3, 512
+
+# [silo]: FedML's cross-silo benchmark rows (BASELINE.md, "Cross-silo DNNs":
+# FedAvg, LDA alpha 0.5, SGD lr 1e-3, wd 1e-3, batch 64) through
+# experiments/run.py's main at full width, bf16, augmentation on (crop, flip
+# and Cutout(16) on cifar100, crop and flip on cinic10): 4 clients of <= 128
+# samples (2 steps of 64), 2 rounds (the first a warm-up), 256 test samples.
+# (dataset, model, extra flags); ResNet-56 runs its 3x3 convs on the kernel
+SILO_PAIRS = [
+    ("cifar100", "resnet56", ["--conv_variant", "kernel"]),
+    ("cinic10", "resnet56", ["--conv_variant", "kernel"]),
+    ("cifar100", "mobilenet", []),
+    ("cinic10", "mobilenet", []),
+    ("cifar100", "vgg16_bn", []),
+    ("cifar100", "mobilenet_v3", []),
+    ("cifar100", "efficientnet", []),
+]
+SILO_CLIENTS, SILO_SAMPLES, SILO_BATCH, SILO_ROUNDS, SILO_TEST = 4, 128, 64, 2, 256
+SILO_COMMON = [
+    "--algorithm", "fedavg", "--client_num_in_total", str(SILO_CLIENTS),
+    "--client_num_per_round", str(SILO_CLIENTS), "--partition_method", "hetero",
+    "--partition_alpha", "0.5", "--batch_size", str(SILO_BATCH),
+    "--max_samples_per_client", str(SILO_SAMPLES), "--max_test_samples", str(SILO_TEST),
+    "--comm_round", str(SILO_ROUNDS), "--lr", "0.001", "--wd", "0.001",
+    "--compute_dtype", "bf16", "--seed", "0"]
+# the new families at their registry widths (cifar100: 100 classes, 32 px):
+# their seeded inits are held to tests/silo_init_digests.json ([init]) and
+# one make_round_fn round each (2 clients x 2 steps of SILO_ROUND_BATCH, SGD
+# lr 1e-3, dropout and drop-connect on) card fp32 to the CPU's float64
+SILO_FAMILIES = ["vgg16_bn", "mobilenet", "mobilenet_v3", "efficientnet"]
+SILO_ROUND_BATCH, SILO_ROUND_LR = 8, 1e-3
+# these BatchNorm nets end at 1x1 maps, where the statistics are over the
+# batch alone, and at batch 8 an fp32 round can land further from float64
+# than ZOO_ROUND_RTOL (MobileNet 1.4e-3-1.7e-3 on an 8-core x86 CPU, from the
+# init and from it one ulp up and down): the card's round is held within
+# the larger of ZOO_ROUND_RTOL and SILO_CHAOS x that spread, measured in
+# the run; the planted faults of phase_silo(controls=True) land beyond it
+# (readings: PERF.md §6)
+SILO_CHAOS = 3.0
+SILO_DIGESTS = "tests/silo_init_digests.json"
 
 # [algos]: the FedAvg-engine family through experiments/run.py's main on
 # full-width ResNet-56 (every 3x3 conv on the kernel, bf16 compute) over the
@@ -366,7 +430,7 @@ def rng_case(draw: str, seed: int, kw: dict, device):
     import torch
 
     from fedml_tpu_torch.core import rng
-    from fedml_tpu_torch.data.augment import cifar_augment
+    from fedml_tpu_torch.data.augment import cifar_augment, make_image_augment
 
     key = rng.PRNGKey(seed)
     if draw == "random_bits":
@@ -379,9 +443,11 @@ def rng_case(draw: str, seed: int, kw: dict, device):
         out = rng.randint(key, kw["shape"], kw["lo"], kw["hi"], device)
     elif draw == "permutation":
         out = rng.permutation(key, kw["n"], device).to(torch.int32)
-    elif draw == "cifar_augment":
+    elif draw in ("cifar_augment", "cinic_augment"):
         x = torch.from_numpy(augment_images(kw["images"])).to(device)
-        out = cifar_augment()(key, x)
+        augment = (cifar_augment() if draw == "cifar_augment"
+                   else make_image_augment(pad=4, flip=True, cutout=None))
+        out = augment(key, x)
     else:
         raise ValueError(f"unknown draw {draw!r}")
     return out.cpu().numpy()
@@ -398,6 +464,16 @@ def answer_of(arr) -> dict:
     return {"dtype": str(arr.dtype), "shape": list(arr.shape),
             "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
             "head": arr.ravel()[:8].tolist()}
+
+
+def init_digests(variables: dict) -> dict:
+    """sha256 of each leaf's float32 bytes under its flax path
+    (``params/Conv_0/kernel``), the form of tests/silo_init_digests.json."""
+    import hashlib
+
+    return {f"{c}/{k.replace('.', '/')}": hashlib.sha256(
+        v.float().cpu().numpy().tobytes()).hexdigest()
+        for c in variables for k, v in variables[c].items()}
 
 
 def fail(msg: str) -> None:
@@ -1342,7 +1418,8 @@ def phase_init():
     """The seeded init (flax's model under PRNGKey(s)) drawn on the card
     against the same draw on the CPU, bit for bit: ResNet-56, a small
     transformer and the zoo's models (the LSTMs' orthogonal kernels
-    included)."""
+    included); and the cross-silo families' full-width inits drawn on the
+    card against the digests of flax's (SILO_DIGESTS)."""
     import torch
 
     from fedml_tpu_torch.core.rng import PRNGKey
@@ -1374,6 +1451,30 @@ def phase_init():
         if not same:
             fail(f"init {name}: the card's draw is not the CPU's")
         rec[name] = {"values": n, "card_s": card_s, "cpu_s": host_s}
+    # the cross-silo families at full width, drawn on the card only (VGG's
+    # 134M values take minutes through the host's CPU): each leaf's sha256
+    # against flax's init (tests/silo_init_digests.json)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)), SILO_DIGESTS)) as f:
+        digests = json.load(f)["models"]
+    for model in SILO_FAMILIES:
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = _silo_bundle(model, "cuda").init(PRNGKey(0))
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        got = init_digests(card)
+        n = sum(v.numel() for col in card.values() for v in col.values())
+        same = got == digests[model]
+        print(f"[init] {model}/cifar100: {n} values, card {card_s:.3f} s (peak "
+              f"{peak_gib:.2f} GiB), == flax's init (sha256 per leaf, {len(got)} leaves) {same}")
+        if not same:
+            bad = sorted(k for k in digests[model] if got.get(k) != digests[model][k])
+            fail(f"init {model}: the card's draw is not flax's init ({bad[:4]})")
+        rec[model] = {"values": n, "card_s": card_s, "peak_gib": peak_gib}
+        del card
+        torch.cuda.empty_cache()
     return rec
 
 
@@ -1693,6 +1794,242 @@ def phase_pack():
         fail("pack: the native pack differs from numpy's")
     return {"native_ms": native_ms, "reuse_ms": reuse_ms, "numpy_ms": numpy_ms,
             "cohort_mb": mb}
+
+
+def _silo_bundle(model, device):
+    from fedml_tpu_torch.experiments.registry import create_model
+
+    return create_model(model, "cifar100", 100, input_shape=(32, 32, 3), device=device)
+
+
+def _silo_round(model, variables, device, float64=False):
+    """One make_round_fn round of 2 clients x 2 steps of SILO_ROUND_BATCH
+    (a half-padded batch) on ``device`` from ``variables`` (cast to float64
+    with the images, with ``float64``); returns the new variables, the
+    round's metrics, the round function, its state and arguments."""
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import ServerState, make_round_fn
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+
+    lu = make_local_update(_silo_bundle(model, device),
+                           make_client_optimizer("sgd", SILO_ROUND_LR), 1)
+    data = _zoo_round_data("cifar100", SILO_ROUND_BATCH, 100, (32, 32, 3), None)
+    dtype = torch.float64 if float64 else torch.float32
+    args = (torch.from_numpy(data[0]).to(device, dtype),
+            *(torch.from_numpy(a).to(device) for a in data[1:5]), data[5])
+    state = ServerState(_tree_as(variables, dtype, device), (), 0, PRNGKey(1))
+    round_fn = make_round_fn(lu, device=device)
+    new, metrics = round_fn(state, *args)
+    return new.variables, metrics, round_fn, state, args
+
+
+def _round_gap(got: dict, want: dict) -> float:
+    """The largest max |Δ| over the variables of two rounds, each leaf's over
+    max(1, its largest magnitude in ``want``): relative for a large leaf,
+    absolute for a small one.  A conv bias ahead of a BatchNorm gets no
+    gradient in exact arithmetic (the mean cancels it): the float64 round
+    leaves it ~1e-18, an fp32 round ~1e-9, so a gap relative to the leaf
+    alone reads ~1e9 whatever the round did."""
+    return max((got[c][k].cpu().double() - w.cpu().double()).abs().max().item()
+               / max(1.0, w.abs().max().item())
+               for c in want for k, w in want[c].items())
+
+
+def _ulp_bumped(variables: dict, to: float) -> dict:
+    """``variables`` with every parameter one ulp toward ``to`` (±inf)."""
+    import torch
+
+    return {**variables, "params": {k: torch.nextafter(v, torch.full_like(v, to))
+                                    for k, v in variables["params"].items()}}
+
+
+def _silo_faults():
+    """The planted faults the round gate must refuse, each a patch of the
+    package while in use: EfficientNet's stride-2 SAME padding made
+    symmetric, and VGG's flatten in NCHW order."""
+    from unittest import mock
+
+    from fedml_tpu_torch.models import resnet, vgg
+
+    pool = vgg.adaptive_avg_pool
+    return [("efficientnet", "symmetric padding at stride 2",
+             mock.patch.object(resnet, "same_pads",
+                               lambda size, k, stride, dilation=1: (k // 2, k // 2))),
+            ("vgg16_bn", "flatten in NCHW order",
+             mock.patch.object(vgg, "adaptive_avg_pool",
+                               lambda x, out: pool(x, out).permute(0, 3, 1, 2)))]
+
+
+def _silo_family_rounds(device, controls, card, rec, profile=False):
+    """[silo]'s card against the CPU, one round per SILO_FAMILIES model from
+    one init drawn on the card: the card's fp32 round held to the CPU's
+    float64 round within the larger of ZOO_ROUND_RTOL and SILO_CHAOS x the
+    spread of the CPU's fp32 rounds (from the init and from it one ulp up
+    and down); with ``controls`` the planted faults of ``_silo_faults``
+    must land beyond their family's gate; with ``profile`` a
+    ``torch.profiler`` trace of the card's round.  Records into ``rec``."""
+    import torch
+
+    from fedml_tpu_torch.core.rng import PRNGKey
+
+    faults = _silo_faults() if controls else []
+    refs = {}
+    for model in SILO_FAMILIES:
+        variables = _silo_bundle(model, device).init(PRNGKey(0))
+        host_vars = _tree_as(variables, torch.float32, "cpu")
+        (got, gm, *card_round), card_ms = _ms_of(
+            lambda: _silo_round(model, variables, device), device)
+        (host, hm, *_), cpu_ms = _ms_of(lambda: _silo_round(model, host_vars, "cpu"), "cpu")
+        ref = _silo_round(model, host_vars, "cpu", float64=True)[0]
+        spread = [_round_gap(host, ref)] + [
+            _round_gap(_silo_round(model, _ulp_bumped(host_vars, to), "cpu")[0], ref)
+            for to in (math.inf, -math.inf)]
+        gate = max(ZOO_ROUND_RTOL, SILO_CHAOS * max(spread))
+        worst, card_host = _round_gap(got, ref), _round_gap(got, host)
+        loss_c, loss_h = float(gm["loss_sum"]), float(hm["loss_sum"])
+        print(f"[silo] {model}: one round of 2 clients x 2 steps of {SILO_ROUND_BATCH} (fp32, "
+              f"TF32 off, sgd lr {SILO_ROUND_LR:g}), max |Δ| / max(1, max |leaf|): card vs "
+              f"cpu float64 {worst:.3g} (gate {gate:.3g}); cpu fp32 vs float64 from the init, "
+              f"one ulp up, one ulp down {', '.join(f'{g:.3g}' for g in spread)}; card vs cpu "
+              f"fp32 {card_host:.3g}; loss_sum {loss_c:.6f} vs {loss_h:.6f}; round "
+              f"{card_ms:.1f} ms on the card, {cpu_ms:.1f} ms on the host's CPU ({card})")
+        if not worst <= gate or not math.isfinite(loss_c):
+            fail(f"silo {model}: the card's round is not the CPU's float64 one "
+                 f"({worst:.3g} > {gate:.3g})")
+        rec[f"round {model}"] = {"card_vs_f64": worst, "gate": gate, "cpu_spread": spread,
+                                 "card_vs_cpu": card_host, "loss_sum": [loss_c, loss_h],
+                                 "card_ms": card_ms, "cpu_ms": cpu_ms}
+        if profile and device == "cuda":
+            prof = profile_round(*card_round)
+            prof["launches_per_step"] = prof["kernel_launches"] / 4
+            print(f"[silo] {model}: {prof['launches_per_step']:.0f} kernel launches per "
+                  "training step (a 2 x 2 round's launches / 4, aggregation included)")
+            rec[f"round {model}"]["profile"] = prof
+        if model in {m for m, *_ in faults}:
+            refs[model] = (variables, ref, gate)
+        del got, host, ref, variables, host_vars, card_round
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    for model, fault, planted in faults:
+        variables, ref, gate = refs[model]
+        with planted:
+            got = _silo_round(model, variables, device)[0]
+        g = _round_gap(got, ref)
+        print(f"[silo] control, {model} with {fault}: card vs cpu float64 {g:.3g} (gate "
+              f"{gate:.3g}): refused {g > gate}")
+        if not g > gate:
+            fail(f"silo control: the round gate passed {model} with {fault}")
+        rec[f"control {model}"] = {"fault": fault, "card_vs_f64": g, "gate": gate}
+
+
+def phase_silo(profile: bool = False, controls: bool = False, device: str = "cuda"):
+    """The cross-silo image zoo: every pair of SILO_PAIRS through
+    ``experiments.run.main`` (FedAvg, bf16, augmentation on) at full width,
+    SILO_ROUNDS rounds (the first a warm-up); per pair the parameter count,
+    the median round seconds and samples/s after the warm-up, the final test
+    accuracy and loss (all finite) and the conv kernel's launches per
+    forward (19 for ResNet-56, 18 of them tensor-core in each bf16 training
+    forward; no launch of either kernel for the other models).  Then per
+    new family one make_round_fn round initialized on the card and copied
+    to the CPU: the card in fp32 (TF32 off) within the larger of
+    ZOO_ROUND_RTOL and SILO_CHAOS x the spread of the CPU's fp32 rounds of
+    the CPU's float64 round (``_round_gap``); and EfficientNet's
+    drop-connect mask card == CPU bit for bit.
+    ``controls`` adds the planted faults of ``_silo_faults``, which the
+    round gate must refuse, ``profile`` a ``torch.profiler`` trace of each
+    family's card round (launches per step, idle share); ``device`` "cpu"
+    rehearses the phase without a card (both sides of the round then run on
+    the CPU)."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from fedml_tpu_torch.core import rng as rnglib
+    from fedml_tpu_torch.core.types import cohort_steps_per_epoch
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.experiments.registry import load_data, shrink_dataset
+    from fedml_tpu_torch.models.efficientnet import drop_connect
+
+    card = smi_line() if device == "cuda" else "cpu"
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    launches = tc_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for dataset, model, extra in SILO_PAIRS:
+            ds = shrink_dataset(load_data(dataset, "", SILO_CLIENTS, "hetero", 0.5, 0),
+                                SILO_SAMPLES, SILO_TEST)
+            train_fwd = SILO_ROUNDS * SILO_CLIENTS * cohort_steps_per_epoch(ds, SILO_BATCH)
+            # every round is evaluated at this cut (round 0 and the last)
+            fwd = train_fwd + SILO_ROUNDS * math.ceil(len(ds.test_y) / SILO_BATCH)
+            reset_launches()
+            t0 = time.perf_counter()
+            out = run.main(["--dataset", dataset, "--model", model, *extra, *SILO_COMMON,
+                            "--device", device, "--run_dir", os.path.join(tmp, "runs")])
+            sync()
+            secs = time.perf_counter() - t0
+            seen = read_launches()
+            hist, final = out["history"], out["final"]
+            round_s = statistics.median(r["time_round"] for r in hist[1:])
+            samples = statistics.median(r["count"] for r in hist[1:])
+            params = sum(p.numel() for p in
+                         _zoo_bundle(dataset, model, ds.num_classes, (32, 32, 3),
+                                     "meta").module.parameters())
+            kernel = bool(extra)
+            tag = f"{dataset}+{model}" + ("+kernel" if kernel else "")
+            r = {"params": params, "run_s": secs, "round_s": [row["time_round"] for row in hist],
+                 "median_round_s": round_s, "samples_per_round": samples,
+                 "samples_per_s": samples / round_s, "forwards": fwd,
+                 "launches": seen["conv3x3_mxu"], "tc_launches": seen["conv3x3_mxu_tc"],
+                 "per_forward": seen["conv3x3_mxu"] / fwd,
+                 "final": {k: v for k, v in final.items() if k.startswith(("test_", "train_"))}}
+            rec[tag] = r
+            launches += seen["conv3x3_mxu"]
+            tc_launches += seen["conv3x3_mxu_tc"]
+            finite = all(math.isfinite(v) for v in r["final"].values())
+            print(f"[silo] {tag}: {params} params, {len(hist)} rounds x {SILO_CLIENTS} clients "
+                  f"(batch {SILO_BATCH}, <= {SILO_SAMPLES} samples each) in {secs:.2f} s; median "
+                  f"round {round_s:.4f} s after a warm-up, {r['samples_per_s']:.1f} samples/s; "
+                  f"test_acc {final['test_acc']:.4f} test_loss {final['test_loss']:.4f}; finite "
+                  f"{finite}; conv3x3_mxu launches {seen['conv3x3_mxu']} "
+                  f"({seen['conv3x3_mxu_tc']} tensor-core) for {fwd} forwards = "
+                  f"{r['per_forward']:.2f} per forward ({card})")
+            if not finite or final["test_count"] <= 0:
+                fail(f"silo {tag}: {final}")
+            if seen["flash_attention_fwd"]:
+                fail(f"silo {tag}: the flash kernel ran")
+            want = ((19 * fwd, TC_PER_FORWARD * train_fwd) if kernel else (0, 0))
+            if device == "cuda" and (seen["conv3x3_mxu"], seen["conv3x3_mxu_tc"]) != want:
+                fail(f"silo {tag}: conv launches {seen}, expected {want[0]} ({want[1]} "
+                     "tensor-core)")
+    rec.update(launches=launches, tc_launches=tc_launches)
+
+    # cuDNN's algorithms pinned, so a card's round repeats
+    reset_launches()
+    with deterministic():
+        _silo_family_rounds(device, controls, card, rec, profile)
+    seen = read_launches()
+    if any(seen.values()):
+        fail(f"silo: a family round launched a kernel of the JAX package's Pallas paths: {seen}")
+
+    # EfficientNet's drop-connect mask, card against CPU, bit for bit
+    x = torch.randn(64, 4, 4, 40, generator=torch.Generator().manual_seed(0))
+    key = rnglib.fold_in(rnglib.PRNGKey(5), 3)
+    a = drop_connect(x.to(device), 0.15, True, key).cpu()
+    b = drop_connect(x, 0.15, True, key)
+    same = torch.equal(a, b)
+    kept = (b != 0).all((1, 2, 3)).float().mean().item()
+    print(f"[silo] drop-connect 0.15 over a [64, 4, 4, 40] activation: card == cpu bitwise "
+          f"{same} (kept {kept:.4f} of the samples)")
+    if not same:
+        fail("silo: the card's drop-connect mask is not the CPU's")
+    rec["drop_connect_card_equals_cpu"] = same
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[silo] phase time: {rec['phase_s']:.1f} s ({card})")
+    return rec
 
 
 def checkpoint_variables(path: str) -> list:
@@ -2545,6 +2882,7 @@ def main() -> int:
     compress_rec = phase_compress()
     pack_rec = phase_pack()
     zoo_rec = phase_zoo(args.profile)
+    silo_rec = phase_silo(args.profile)
     algos_rec = phase_algos()
     standalone_rec = phase_standalone()
     family_rec = phase_family()
@@ -2562,8 +2900,8 @@ def main() -> int:
         "source": "fedml_tpu_torch/ops/csrc/conv_mxu.cu",
         "replaces": "fedml_tpu/ops/conv_mxu.py:72",
         "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
-                     + compress_rec["launches"] + algos_rec["launches"]
-                     + standalone_rec["launches"]),
+                     + compress_rec["launches"] + silo_rec["launches"]
+                     + algos_rec["launches"] + standalone_rec["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -2596,7 +2934,8 @@ def main() -> int:
                        "flash_cases": flash_cases, "main": main_rec,
                        "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
                        "sim": sim_rec, "init": init_rec, "compress": compress_rec,
-                       "pack": pack_rec, "zoo": zoo_rec, "algos": algos_rec,
+                       "pack": pack_rec, "zoo": zoo_rec, "silo": silo_rec,
+                       "algos": algos_rec,
                        "standalone": standalone_rec, "family": family_rec,
                        "kernels": kernels}, f, indent=1)
     print(smi)

@@ -1,13 +1,15 @@
-"""Model + dataset registries for the experiment entry points (subset of
+"""Model + dataset registries for the experiment entry points (port of
 ``fedml_tpu/experiments/registry.py``).
 
-The port has the names its slices carry so far: datasets ``mnist``,
-``cifar10``, ``femnist``, ``fed_cifar100``, ``shakespeare``,
-``fed_shakespeare``, ``stackoverflow_lr`` and ``stackoverflow_nwp``;
-models ``lr``, ``rnn``, ``cnn``, ``resnet18_gn`` and the CIFAR ResNets
-(``resnet20/32/44/56/110``).  Every other name raises
-``NotImplementedError`` naming the ROADMAP item that ports the rest of
-the JAX registry.
+Every model name of the JAX registry is routed: ``lr``, ``rnn``,
+``cnn``, ``resnet18_gn``, the CIFAR ResNets (``resnet20/32/44/56/110``),
+``mobilenet``, ``mobilenet_v3``, ``efficientnet`` and ``vgg11`` …
+``vgg19_bn``.  So is every dataset but the ImageNet and Landmarks
+folder trees: ``mnist``, ``cifar10``, ``cifar100``, ``cinic10``,
+``femnist``, ``fed_cifar100``, ``shakespeare``, ``fed_shakespeare``,
+``stackoverflow_lr``, ``stackoverflow_nwp`` and ``synthetic``.
+``ILSVRC2012``/``imagenet`` and ``gld23k``/``gld160k`` raise
+``NotImplementedError`` naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -19,10 +21,10 @@ from fedml_tpu_torch.models.base import ModelBundle
 from fedml_tpu_torch.utils.device import DeviceLike
 
 
-def _not_ported(kind: str, name: str):
+def _not_ported(name: str):
     return NotImplementedError(
-        f"{kind} {name!r} is not ported to fedml_tpu_torch yet "
-        "(ROADMAP.md, queue A item 3: the rest of the model and data zoo)")
+        f"dataset {name!r} is not ported to fedml_tpu_torch yet (ROADMAP.md, "
+        "queue A item 3b: the ImageNet and Landmarks loaders)")
 
 
 def load_data(
@@ -38,12 +40,14 @@ def load_data(
 
         return load_mnist(data_dir or "./data/mnist", num_clients,
                           partition="power_law", seed=seed)
-    if dataset == "cifar10":
-        from fedml_tpu_torch.data.cifar import load_cifar10
+    if dataset in ("cifar10", "cifar100", "cinic10"):
+        from fedml_tpu_torch.data import cifar
 
-        return load_cifar10(data_dir or "./data/cifar10", num_clients,
-                            partition=partition_method,
-                            partition_alpha=partition_alpha, seed=seed)
+        fn = {"cifar10": cifar.load_cifar10, "cifar100": cifar.load_cifar100,
+              "cinic10": cifar.load_cinic10}[dataset]
+        return fn(data_dir or f"./data/{dataset}", num_clients,
+                  partition=partition_method, partition_alpha=partition_alpha,
+                  seed=seed)
     if dataset == "femnist":
         from fedml_tpu_torch.data.emnist import load_femnist
 
@@ -74,7 +78,16 @@ def load_data(
 
         return load_stackoverflow_nwp(data_dir or "./data/stackoverflow",
                                       num_clients, seed=seed)
-    raise _not_ported("dataset", dataset)
+    if dataset in ("ILSVRC2012", "imagenet", "gld23k", "gld160k"):
+        raise _not_ported(dataset)
+    if dataset == "synthetic":
+        from fedml_tpu_torch.data.synthetic import synthetic_classification
+
+        return synthetic_classification(
+            num_clients=num_clients, partition=partition_method,
+            partition_alpha=partition_alpha, seed=seed,
+        )
+    raise ValueError(f"unknown dataset: {dataset}")
 
 
 def task_loss_for_dataset(dataset: str):
@@ -172,6 +185,25 @@ def create_model(
 
         return getattr(resnet, model)(num_classes=num_classes, image_size=img,
                                       device=device)
+    if model == "mobilenet":
+        from fedml_tpu_torch.models.mobilenet import mobilenet
+
+        return mobilenet(num_classes=num_classes, image_size=img, device=device)
+    if model == "mobilenet_v3":
+        from fedml_tpu_torch.models.mobilenet_v3 import mobilenet_v3
+
+        return mobilenet_v3(num_classes=num_classes, model_mode="LARGE",
+                            image_size=img, device=device)
+    if model == "efficientnet":
+        from fedml_tpu_torch.models.efficientnet import efficientnet
+
+        return efficientnet("efficientnet-b0", num_classes=num_classes,
+                            image_size=img, device=device)
+    if model.startswith("vgg"):
+        from fedml_tpu_torch.models import vgg
+
+        return getattr(vgg, model)(num_classes=num_classes, image_size=img,
+                                   device=device)
     if model == "lr":
         # generic: LR flattens any input shape
         import numpy as np
@@ -180,4 +212,4 @@ def create_model(
 
         dim = int(np.prod(input_shape)) if input_shape else 784
         return logistic_regression(dim, num_classes, device=device)
-    raise _not_ported(f"model (on dataset {dataset!r})", model)
+    raise ValueError(f"unknown model: {model} (dataset {dataset})")

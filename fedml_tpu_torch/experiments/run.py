@@ -13,13 +13,17 @@ the FedAvg-engine family, ``fedavg``, ``fedprox`` (``--mu``), ``fedopt``
 decay), ``fedavg_robust`` (``--defense_type/--norm_bound/--stddev``, the
 pixel-trigger backdoor on client 1) and ``hierarchical``
 (``--group_num/--group_comm_round``), over every (model, dataset) pair of
-``registry.py``: ``resnet56`` on ``cifar10`` with the reference's
-per-epoch CIFAR augmentation, ``--data_augmentation 1`` by default, and
-the cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
+``registry.py``: the cross-silo image zoo — the CIFAR ResNets,
+``mobilenet``, ``mobilenet_v3``, ``efficientnet`` and ``vgg*`` on
+``cifar10``, ``cifar100`` and ``cinic10`` with the reference's per-epoch
+augmentation (``--data_augmentation 1`` by default: crop, flip and
+Cutout(16) on the CIFARs, crop and flip on CINIC-10) — and the
+cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
 ``cnn`` on ``femnist``, ``resnet18_gn`` on ``fed_cifar100``, ``rnn`` on
 ``shakespeare``, ``fed_shakespeare`` and ``stackoverflow_nwp`` — with the
 dataset's task loss; the multi-label one adds ``test_precision`` and
-``test_recall`` to the evaluation record) and ``fedllm`` on one device
+``test_recall`` to the evaluation record; ``synthetic`` is the
+class-prototype stand-in) and ``fedllm`` on one device
 (the transformer through ``FedAvgSimulation``); the standalone drivers
 ``centralized``, ``decentralized`` (gossip over
 ``SymmetricTopologyManager(n, min(2, n − 1))``, worker 0 evaluated),
@@ -533,13 +537,19 @@ def _simulation(cfg: ExperimentConfig, ds, bundle, **engine_kw):
 
 
 def _augment_fn(cfg: ExperimentConfig, ds):
-    """The reference's CIFAR-10 loader augments every epoch: crop (pad 4),
-    flip and Cutout(16), unless ``--data_augmentation 0``.  fed_cifar100
-    trains unaugmented, as in the JAX package."""
-    if cfg.data_augmentation and ds.train_x.ndim == 4 and cfg.dataset == "cifar10":
-        from fedml_tpu_torch.data.augment import cifar_augment
+    """The reference's CIFAR-family loaders augment every epoch, unless
+    ``--data_augmentation 0``: crop (pad 4), flip and Cutout(16) for
+    CIFAR-10 and CIFAR-100, crop and flip for CINIC-10.  The other
+    datasets (fed_cifar100 among them) train unaugmented, as in the JAX
+    package."""
+    if not (cfg.data_augmentation and ds.train_x.ndim == 4):
+        return None
+    from fedml_tpu_torch.data.augment import make_image_augment
 
-        return cifar_augment()
+    if cfg.dataset in ("cifar10", "cifar100"):
+        return make_image_augment(pad=4, flip=True, cutout=16)
+    if cfg.dataset == "cinic10":
+        return make_image_augment(pad=4, flip=True, cutout=None)
     return None
 
 

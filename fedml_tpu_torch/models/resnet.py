@@ -13,7 +13,7 @@ paths (``Bottleneck_3.Conv_1.kernel``, ``BatchNorm_0.mean``).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Type
+from typing import Optional, Sequence, Type, Union
 
 import torch
 import torch.nn.functional as F
@@ -23,18 +23,31 @@ from fedml_tpu_torch.models.base import Dense, ModelBundle, meta_param
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 
+def same_pads(size: int, k: int, stride: int, dilation: int = 1):
+    """flax's (lax's) ``padding="SAME"`` along one axis: the output is
+    ``ceil(size / stride)`` long and the padding it needs is split with
+    the odd element at the end, ``(pad // 2, pad − pad // 2)``; at stride
+    2 that is (0, 1) for k 3 and (1, 2) for k 5 at an even size."""
+    window = (k - 1) * dilation + 1
+    out = -(-size // stride)
+    pad = max((out - 1) * stride + window - size, 0)
+    return pad // 2, pad - pad // 2
+
+
 class Conv(nn.Module):
     """flax ``nn.Conv``: NHWC input, HWIO ``kernel``, symmetric padding
     ``padding`` (default ``k // 2``: flax's ``SAME`` at stride 1, and the
-    explicit ``k // 2`` of the ResNets at stride 2), a ``bias`` with
-    ``use_bias``; ``groups`` is flax's ``feature_group_count`` (the kernel
-    is ``[k, k, cin // groups, cout]``) and ``dilation`` its
-    ``kernel_dilation``."""
+    explicit ``k // 2`` of the ResNets at stride 2) or flax's
+    ``padding="SAME"`` (``same_pads``, asymmetric where the stride leaves
+    an odd remainder), a ``bias`` with ``use_bias``; ``groups`` is flax's
+    ``feature_group_count`` (the kernel is ``[k, k, cin // groups,
+    cout]``) and ``dilation`` its ``kernel_dilation``."""
 
     def __init__(self, cin: int, cout: int, k: int, stride: int = 1,
-                 padding: Optional[int] = None, use_bias: bool = False,
+                 padding: Union[int, str, None] = None, use_bias: bool = False,
                  groups: int = 1, dilation: int = 1):
         super().__init__()
+        self.k = k
         self.stride = stride
         self.padding = k // 2 if padding is None else padding
         self.groups = groups
@@ -45,27 +58,38 @@ class Conv(nn.Module):
     def forward(self, x):
         w = self.kernel.to(x.dtype).permute(3, 2, 0, 1)
         b = None if self.bias is None else self.bias.to(x.dtype)
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, b, stride=self.stride,
-                     padding=self.padding, dilation=self.dilation, groups=self.groups)
+        x = x.permute(0, 3, 1, 2)
+        padding = self.padding
+        if padding == "SAME":
+            (top, bottom), (left, right) = (
+                same_pads(n, self.k, self.stride, self.dilation) for n in x.shape[2:])
+            if top == bottom and left == right:
+                padding = (top, left)
+            else:
+                x, padding = F.pad(x, (left, right, top, bottom)), 0
+        y = F.conv2d(x, w, b, stride=self.stride, padding=padding,
+                     dilation=self.dilation, groups=self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over NHWC.
+    """flax ``nn.BatchNorm(momentum, epsilon)`` over NHWC (the ResNets'
+    0.9 and 1e-5 by default; EfficientNet's 0.99 and 1e-3).
 
-    Train mode: fp32 statistics with the fast variance
-    ``max(E[x²] - E[x]², 0)``; running stats become
-    ``0.9·ra + 0.1·batch`` with the BIASED variance and are written to
-    ``updates``.  The normalization runs in fp32 and is cast to the
-    promoted dtype of (x, scale, bias), as flax's ``_normalize`` does.
+    Train mode: statistics in at least fp32 (float64 stays float64, as in
+    flax) with the fast variance ``max(E[x²] - E[x]², 0)``; running stats
+    become ``m·ra + (1 − m)·batch`` with the BIASED variance and are
+    written to ``updates``.  The normalization runs in the statistics'
+    dtype and is cast to the promoted dtype of (x, scale, bias), as flax's
+    ``_normalize`` does.
     ``affine=False`` is flax's ``use_scale=use_bias=False``: no
     parameters, only the statistics."""
 
-    momentum = 0.9
-    epsilon = 1e-5
-
-    def __init__(self, c: int, affine: bool = True):
+    def __init__(self, c: int, affine: bool = True, momentum: float = 0.9,
+                 epsilon: float = 1e-5):
         super().__init__()
+        self.momentum = momentum
+        self.epsilon = epsilon
         self.scale = meta_param(c) if affine else None
         self.bias = meta_param(c) if affine else None
         self.register_buffer("mean", torch.empty(c, device="meta"))
@@ -73,7 +97,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x, train: bool, updates: dict):
         if train:
-            xf = x.float()
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             mean = xf.mean((0, 1, 2))
             mean2 = xf.square().mean((0, 1, 2))
             var = torch.clamp_min(mean2 - mean.square(), 0.0)

@@ -158,10 +158,11 @@ _NOT_PORTED = (NotImplementedError, "ROADMAP")
     # fedavg checkpoints now; fedllm has no checkpoint wiring (nor in JAX)
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare",
       "--checkpoint_every", "1"], (SystemExit, "no checkpoint wiring")),
-    # cifar10 augments now; cifar100's recipe waits for its loader
-    (["--algorithm", "fedavg", "--dataset", "cifar100"], _NOT_PORTED),
-    # mnist loads now; a model the zoo has not ported yet still refuses
-    (["--algorithm", "fedavg", "--dataset", "mnist", "--model", "mobilenet"],
+    # the CIFARs and CINIC-10 load and augment now; ImageNet's loader (and
+    # its augment) waits for queue A item 3b
+    (["--algorithm", "fedavg", "--dataset", "ILSVRC2012"], _NOT_PORTED),
+    # every model is routed now (mobilenet too); the Landmarks loader is not
+    (["--algorithm", "fedavg", "--dataset", "gld23k", "--model", "mobilenet"],
      _NOT_PORTED),
 ], ids=["fedprox", "tp", "mesh", "compress", "checkpoint", "augment", "mnist"])
 def test_run_refuses_what_is_not_ported(tmp_path, extra, refusal):

@@ -17,6 +17,7 @@ from jax._src import prng as jprng
 
 import chip_smoke
 from fedml_tpu.data.augment import cifar_augment as jcifar_augment
+from fedml_tpu.data.augment import make_image_augment as jmake_image_augment
 from fedml_tpu_torch.core import rng
 
 ANSWERS = os.path.join(os.path.dirname(__file__), "threefry_known_answers.json")
@@ -137,9 +138,10 @@ def _jax_case(draw, seed, kw):
         return np.asarray(jax.random.randint(k, kw["shape"], kw["lo"], kw["hi"]))
     if draw == "permutation":
         return np.asarray(jax.random.permutation(k, kw["n"]))
-    assert draw == "cifar_augment"
-    return np.asarray(jax.jit(jcifar_augment())(
-        k, chip_smoke.augment_images(kw["images"])))
+    assert draw in ("cifar_augment", "cinic_augment")
+    augment = (jcifar_augment() if draw == "cifar_augment"
+               else jmake_image_augment(pad=4, flip=True, cutout=None))
+    return np.asarray(jax.jit(augment)(k, chip_smoke.augment_images(kw["images"])))
 
 
 @pytest.mark.parametrize("name,draw,seed,kw", chip_smoke.RNG_CASES,
