@@ -23,8 +23,12 @@ Phases, in order; any failure exits non-zero:
              small's head width (H 20, D 64), and the experiments/run.py
              shape (L 80, H 4, D 16) in fp32 and bf16, each case printed with the
              route it took (``wgmma``: bf16 with D 64/128; ``mma``: bf16
-             with D <= 32; ``fma``: fp32).
-3. check   — the kernel-conv ResNet-56 against the library-conv ResNet-56,
+             with D <= 32; ``fma``: fp32).  Then conv3x3_mxu at the same six
+             shapes at the ImageNet loaders' 224 px (N=16, bf16 with moments:
+             ~12.5k-50k blocks a launch), each moment sum also held against the
+             float64 sum of its own side's output.
+3. check   — the kernel-conv ResNet-56 against the library-conv ResNet-56
+             (at 32 px, batch 8, and at 224 px, batch 2),
              and the flash-kernel transformer against the plain-attention
              transformer, each with the same variables on a small batch
              (fp32, TF32 off, and the transformer once more in bf16, where
@@ -180,6 +184,32 @@ Phases, in order; any failure exits non-zero:
              shuffled as in epoch 1; FedNAS with equal client weights,
              the valid batch one step off, no alpha step, a pad-only
              batch that steps), which the gates must refuse.
+17. imagenet — the ImageNet and Landmarks loaders at 224 px through
+             ``experiments.run.main`` (FedAvg, SGD lr 1e-3 wd 1e-3, bf16, no
+             augmentation, 4 clients of <= 32 samples per round, batch 16, 2
+             rounds, the first a warm-up, 64 test samples) on their stand-ins:
+             ResNet-56 on the conv kernel on ILSVRC2012 and gld23k,
+             MobileNetV3 and EfficientNet on gld23k, vgg16_bn on ILSVRC2012;
+             per pair the parameter count, median round seconds, samples/s,
+             final test accuracy and loss (finite), peak memory and the conv
+             kernel's launches per forward (19 for ResNet-56, 18 tensor-core
+             in each bf16 training forward, counted by the model's forward
+             calls; 0 for the others, and no flash launch).  Then an fp32
+             eval forward of 2 images at 224 px of vgg16_bn, EfficientNet and
+             the kernel ResNet-56, drawn on the card, against the CPU's
+             float64 forward (ResNet-56 on library convs there) within
+             [silo]'s gate (the larger of 1e-4 and 3x the spread of the CPU's
+             fp32 forwards from the init and one ulp off); planted faults (VGG
+             pooling a global mean, ResNet-56's stride-2 convs padded on the
+             wrong side) must be refused.  Last, ``run.main --algorithm
+             base_framework`` on the card: its history equal to the
+             plain-Python series exactly.
+18. comm   — the message core: ResNet-56's variables on the card in fp32 and
+             bf16 through ``tree_to_wire`` → ``Message.to_frame`` →
+             ``Message.from_frame_bytes`` → ``tree_from_wire`` back onto the
+             card bit for bit, the frame's sha256 and ``wire_tree_digest``
+             equal to those built from the CPU copy; a qsgd8 delta wiretree
+             encoded on the card, its frame the CPU's.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -211,6 +241,18 @@ CONV_SHAPES = [
     ("stage2_body", 16, 32, 32, 1, 5),
     ("stage2to3", 16, 64, 64, 2, 1),
     ("stage3_body", 8, 64, 64, 1, 5),
+]
+# the same six shapes at the ImageNet and Landmarks loaders' 224 px ([imagenet]),
+# where a launch runs ~12.5k-50k blocks and the moment reduce folds as many
+# partial rows: bf16 with moments, as in a training forward
+N_224 = 16
+CONV_SHAPES_224 = [
+    ("stem_224", 224, 3, 16, 1, 1),
+    ("stage1_body_224", 224, 16, 16, 1, 6),
+    ("stage1to2_224", 224, 32, 32, 2, 1),
+    ("stage2_body_224", 112, 32, 32, 1, 5),
+    ("stage2to3_224", 112, 64, 64, 2, 1),
+    ("stage3_body_224", 56, 64, 64, 1, 5),
 ]
 # (name, B, L, H, D, dtype, causal): the fedllm bench shape first; B*L = 8192
 # across the long-context range; run.py's fedllm defaults (width 64 / 4 heads,
@@ -311,6 +353,41 @@ SILO_ROUND_BATCH, SILO_ROUND_LR = 8, 1e-3
 # (readings: PERF.md §6)
 SILO_CHAOS = 3.0
 SILO_DIGESTS = "tests/silo_init_digests.json"
+
+# [imagenet]: the ImageNet and Landmarks loaders at their 224 px through
+# experiments/run.py's main (FedAvg, SGD lr 1e-3, wd 1e-3, bf16, no
+# augmentation: the reference's ImageNet and Landmarks loaders train
+# unaugmented in the JAX package too) on their stand-ins (ILSVRC2012: 1000
+# classes, 16 images per client; gld23k: 203 classes over the power-law
+# stand-in's 50 clients): 4 clients per round of <= 32 samples, 2 rounds (the
+# first a warm-up), batch 16, 64 test samples.  ResNet-56 runs its 3x3
+# convs on the kernel, at ~12.5k-50k blocks per launch.
+IMAGENET_PAIRS = [
+    ("ILSVRC2012", "resnet56", ["--conv_variant", "kernel"]),
+    ("gld23k", "resnet56", ["--conv_variant", "kernel"]),
+    ("gld23k", "mobilenet_v3", []),
+    ("gld23k", "efficientnet", []),
+    ("ILSVRC2012", "vgg16_bn", []),
+]
+IMAGENET_CLIENTS, IMAGENET_SAMPLES, IMAGENET_BATCH, IMAGENET_ROUNDS, IMAGENET_TEST = (
+    4, 32, 16, 2, 64)
+IMAGENET_COMMON = [
+    "--algorithm", "fedavg", "--client_num_in_total", str(IMAGENET_CLIENTS),
+    "--client_num_per_round", str(IMAGENET_CLIENTS), "--batch_size", str(IMAGENET_BATCH),
+    "--max_samples_per_client", str(IMAGENET_SAMPLES), "--max_test_samples",
+    str(IMAGENET_TEST), "--comm_round", str(IMAGENET_ROUNDS), "--lr", "0.001", "--wd",
+    "0.001", "--compute_dtype", "bf16", "--seed", "0"]
+# the models whose 224-px code paths have run only at 32 px before (VGG's
+# 7x7 pool bins, EfficientNet's SAME padding from 224 down to 7, ResNet-56's
+# kernel convs at 224/112/56): an fp32 eval forward of 2 images, the card's
+# against the CPU's float64 forward of the same variables, (model, dataset,
+# classes); ResNet-56 runs on the kernel on the card and on library convs on
+# the CPU.  The gate is [silo]'s: the larger of ZOO_ROUND_RTOL and SILO_CHAOS x
+# the spread of the CPU's fp32 forwards (from the init, one ulp up and one ulp
+# down) from float64, each gap max |Δlogit| over max |logit| of float64's
+IMAGENET_FORWARDS = [("vgg16_bn", "ILSVRC2012", 1000), ("efficientnet", "gld23k", 203),
+                     ("resnet56", "ILSVRC2012", 1000)]
+IMAGENET_SIDE = 224  # the loaders' image_size
 
 # [algos]: the FedAvg-engine family through experiments/run.py's main on
 # full-width ResNet-56 (every 3x3 conv on the kernel, bf16 compute) over the
@@ -511,7 +588,11 @@ def phase_build():
     return secs
 
 
-def phase_kernels():
+def phase_kernels(shapes=CONV_SHAPES, n=N, variants=None):
+    """Every conv case of ``shapes`` at batch ``n`` (default: fp32 and bf16,
+    with and without moments, and one epilogue case) against the plain
+    version; the moments' sums also against float64 sums of each side's
+    own output, so a stray reduce shows which side strays."""
     import torch
     import torch.nn.functional as F
 
@@ -521,12 +602,14 @@ def phase_kernels():
     dev = torch.device("cuda")
     g = torch.Generator(device="cpu").manual_seed(0)
     cases = []
-    variants = [(d, mom, False) for d in ("fp32", "bf16") for mom in (False, True)]
-    for name, hw, ci, co, stride, per_fwd in CONV_SHAPES:
+    default = variants is None
+    if default:
+        variants = [(d, mom, False) for d in ("fp32", "bf16") for mom in (False, True)]
+    for name, hw, ci, co, stride, per_fwd in shapes:
         for dname, moments, epilogue in variants + (
-                [("fp32", False, True)] if name == "stage1_body" else []):
+                [("fp32", False, True)] if default and name == "stage1_body" else []):
             dtype = torch.float32 if dname == "fp32" else torch.bfloat16
-            x = torch.randn(N, hw, hw, ci, generator=g).to(dev, dtype)
+            x = torch.randn(n, hw, hw, ci, generator=g).to(dev, dtype)
             w = (torch.randn(3, 3, ci, co, generator=g)
                  * math.sqrt(2.0 / (9 * ci))).to(dev, dtype)
             kw = dict(stride=stride, moments=moments)
@@ -545,7 +628,7 @@ def phase_kernels():
             tol = TOL[dname]
             if not torch.allclose(gy, ry, rtol=tol, atol=tol):
                 fail(f"{name} {dname} moments={moments}: max abs err {abs_err}")
-            rec = {"shape": name, "n": N, "hw": hw, "cin": ci, "cout": co,
+            rec = {"shape": name, "n": n, "hw": hw, "cin": ci, "cout": co,
                    "stride": stride, "dtype": dname, "moments": moments,
                    "epilogue": epilogue, "per_forward": per_fwd, "route": route,
                    "max_abs_err": abs_err, "max_rel_err": rel_err}
@@ -555,9 +638,15 @@ def phase_kernels():
                 scale = ry.abs().sum((0, 1, 2))
                 s_err = ((got[1] - ref[1]).abs() / scale.clamp_min(1e-6)).max().item()
                 sq_err = ((got[2] - ref[2]).abs() / ref[2].abs().clamp_min(1e-6)).max().item()
+                # each side's sum against the float64 sum of its own output
+                f64 = {side: ((out[1].double() - out[0].double().sum((0, 1, 2))).abs()
+                              / scale.double().clamp_min(1e-6)).max().item()
+                       for side, out in (("kernel", got), ("plain", ref))}
+                rec.update(sum_rel_err=s_err, sumsq_rel_err=sq_err,
+                           sum_vs_f64={k: v for k, v in f64.items()})
                 if s_err > MOMENT_RTOL or sq_err > MOMENT_RTOL:
-                    fail(f"{name} {dname} moments: rel err sum {s_err} sumsq {sq_err}")
-                rec.update(sum_rel_err=s_err, sumsq_rel_err=sq_err)
+                    fail(f"{name} {dname} moments: rel err sum {s_err} sumsq {sq_err}; "
+                         f"each side's sum against float64: {f64}")
             wn = w.permute(3, 2, 0, 1)
             xn = x.permute(0, 3, 1, 2)
             rec["ms"] = kernel_ms(lambda: conv3x3_mxu(x, w, **kw))
@@ -565,18 +654,24 @@ def phase_kernels():
             rec["library_ms"] = kernel_ms(
                 lambda: F.conv2d(xn, wn, stride=stride, padding=1))
             rec["bytes_ms"], rec["ops_ms"] = conv_bound_ms(
-                N, hw, ci, co, stride, dname, moments, epilogue)
+                n, hw, ci, co, stride, dname, moments, epilogue)
             rec["bound_ms"] = max(rec["bytes_ms"], rec["ops_ms"])
             cases.append(rec)
-            print(f"[kernels] {name:12s} {dname} mom={int(moments)} epi={int(epilogue)} {route} "
-                  f"abs {abs_err:.3g} rel {rel_err:.3g} | kernel {rec['ms']:.4f} ms "
-                  f"plain {rec['plain_ms']:.4f} library {rec['library_ms']:.4f} "
-                  f"bound {rec['bound_ms']:.4f}")
+            f64 = rec.get("sum_vs_f64")
+            print(f"[kernels] {name:12s} N={n} {dname} mom={int(moments)} epi={int(epilogue)} "
+                  f"{route} abs {abs_err:.3g} rel {rel_err:.3g}"
+                  + (f" sum {rec['sum_rel_err']:.3g} sumsq {rec['sumsq_rel_err']:.3g} (sums vs "
+                     f"float64: kernel {f64['kernel']:.3g}, plain {f64['plain']:.3g})"
+                     if f64 else "")
+                  + f" | kernel {rec['ms']:.4f} ms plain {rec['plain_ms']:.4f} library "
+                  f"{rec['library_ms']:.4f} bound {rec['bound_ms']:.4f} ({rec['bytes_ms']:.4f} "
+                  "bytes)")
     return cases
 
 
 def phase_check():
-    """Kernel-conv ResNet-56 vs library-conv ResNet-56, same variables."""
+    """Kernel-conv ResNet-56 vs library-conv ResNet-56, same variables, at
+    CIFAR's 32 px (batch 8) and at the ImageNet loaders' 224 px (batch 2)."""
     import torch
 
     from fedml_tpu_torch.core.rng import PRNGKey
@@ -585,20 +680,23 @@ def phase_check():
 
     kern, base = resnet56_tpu(conv_variant="kernel"), resnet56()
     variables = kern.init(PRNGKey(1))
-    x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(2)).cuda()
-    with torch.no_grad():
-        le, lb = kern.apply_eval(variables, x), base.apply_eval(variables, x)
-        te, nve = kern.apply_train(variables, x)
-        tb, nvb = base.apply_train(variables, x)
-    err_eval = (le - lb).abs().max().item()
-    err_train = (te - tb).abs().max().item()
-    err_stats = max((nve["batch_stats"][k] - nvb["batch_stats"][k]).abs().max().item()
-                    for k in nvb["batch_stats"])
-    print(f"[check] ResNet-56 kernel vs library convs: eval logits {err_eval:.3g}, "
-          f"train logits {err_train:.3g}, batch_stats {err_stats:.3g}")
-    if not (torch.allclose(le, lb, rtol=1e-3, atol=1e-3)
-            and torch.allclose(te, tb, rtol=1e-3, atol=1e-3) and err_stats < 1e-3):
-        fail("kernel-conv ResNet-56 disagrees with the library-conv model")
+    for batch, side in ((8, 32), (2, 224)):
+        x = torch.randn(batch, side, side, 3,
+                        generator=torch.Generator().manual_seed(2)).cuda()
+        with torch.no_grad():
+            le, lb = kern.apply_eval(variables, x), base.apply_eval(variables, x)
+            te, nve = kern.apply_train(variables, x)
+            tb, nvb = base.apply_train(variables, x)
+        err_eval = (le - lb).abs().max().item()
+        err_train = (te - tb).abs().max().item()
+        err_stats = max((nve["batch_stats"][k] - nvb["batch_stats"][k]).abs().max().item()
+                        for k in nvb["batch_stats"])
+        print(f"[check] ResNet-56 kernel vs library convs at {side} px (batch {batch}): "
+              f"eval logits {err_eval:.3g}, train logits {err_train:.3g}, batch_stats "
+              f"{err_stats:.3g}")
+        if not (torch.allclose(le, lb, rtol=1e-3, atol=1e-3)
+                and torch.allclose(te, tb, rtol=1e-3, atol=1e-3) and err_stats < 1e-3):
+            fail(f"kernel-conv ResNet-56 disagrees with the library-conv model at {side} px")
 
 
 def phase_flash_kernels():
@@ -2032,6 +2130,304 @@ def phase_silo(profile: bool = False, controls: bool = False, device: str = "cud
     return rec
 
 
+class _ForwardCounter:
+    """Counts the calls of ``cls.forward`` while in use, training (``train``
+    true) and evaluation apart."""
+
+    def __init__(self, cls):
+        self.cls, self.train, self.eval = cls, 0, 0
+
+    def __enter__(self):
+        orig = self.orig = self.cls.forward
+
+        def counted(module, x, train=False, *a, **kw):
+            if train:
+                self.train += 1
+            else:
+                self.eval += 1
+            return orig(module, x, train, *a, **kw)
+        self.cls.forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.forward = self.orig
+
+
+def _imagenet_bundle(model, dataset, classes, device, library=False):
+    """The registry's model at 224 px; ResNet-56 on the conv kernel unless
+    ``library``."""
+    from fedml_tpu_torch.experiments.registry import create_model
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+    side = IMAGENET_SIDE
+    if model == "resnet56" and not library:
+        return resnet56_tpu(classes, side, device=device)
+    return create_model(model, dataset, classes, input_shape=(side, side, 3), device=device)
+
+
+def _logit_gap(got, want) -> float:
+    """max |Δ| of two logit tensors over the largest magnitude of ``want``."""
+    want = want.cpu().double()
+    return ((got.cpu().double() - want).abs().max() / want.abs().max()).item()
+
+
+def _imagenet_faults():
+    """The planted faults the 224-px forward gate must refuse, each a patch
+    of the package while in use: VGG's pool taken as a global mean instead
+    of 7x7 bins, and ResNet-56's stride-2 3x3 convs padded on the wrong side
+    (none above and left, two below and right: the kernel reads the input
+    shifted by one pixel)."""
+    from unittest import mock
+
+    import torch.nn.functional as F
+
+    from fedml_tpu_torch.models import resnet_tpu, vgg
+
+    conv = resnet_tpu.conv3x3
+
+    def wrong_side(x, w, stride):
+        if stride == 2:
+            x = F.pad(x, (0, 0, 0, 1, 0, 1))[:, 1:, 1:, :].contiguous()
+        return conv(x, w, stride)
+
+    return [("vgg16_bn", "a global mean for the 7x7 pool",
+             mock.patch.object(vgg, "adaptive_avg_pool",
+                               lambda x, out: x.mean((1, 2), keepdim=True)
+                               .expand(-1, out, out, -1))),
+            ("resnet56", "stride-2 3x3 convs padded on the wrong side",
+             mock.patch.object(resnet_tpu, "conv3x3", wrong_side))]
+
+
+def _imagenet_forwards(device, controls, card, rec):
+    """Each IMAGENET_FORWARDS model's fp32 eval forward of 2 images at 224 px:
+    variables drawn on ``device``, the card's forward against the CPU's
+    float64 one within the larger of ZOO_ROUND_RTOL and SILO_CHAOS x the
+    spread of the CPU's fp32 forwards; with ``controls`` the planted faults of
+    ``_imagenet_faults`` must land beyond their model's gate."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core.rng import PRNGKey
+
+    side = IMAGENET_SIDE
+    x = np.random.RandomState(3).standard_normal((2, side, side, 3)).astype(np.float32)
+    faults = {m: (f, planted) for m, f, planted in (_imagenet_faults() if controls else [])}
+    for model, dataset, classes in IMAGENET_FORWARDS:
+        bundle = _imagenet_bundle(model, dataset, classes, device)
+        variables = bundle.init(PRNGKey(0))
+        host_vars = _tree_as(variables, torch.float32, "cpu")
+        ref_bundle = _imagenet_bundle(model, dataset, classes, "cpu", library=True)
+        xd = torch.from_numpy(x).to(device)
+        with torch.no_grad():
+            got, card_ms = _ms_of(lambda: bundle.apply_eval(variables, xd), device)
+            want = ref_bundle.apply_eval(_tree_as(host_vars, torch.float64),
+                                         torch.from_numpy(x).double())
+            spread = [_logit_gap(ref_bundle.apply_eval(v, torch.from_numpy(x)), want)
+                      for v in (host_vars, _ulp_bumped(host_vars, math.inf),
+                                _ulp_bumped(host_vars, -math.inf))]
+        gate = max(ZOO_ROUND_RTOL, SILO_CHAOS * max(spread))
+        gap = _logit_gap(got, want)
+        finite = bool(torch.isfinite(got).all())
+        print(f"[imagenet] {model} ({classes} classes) fp32 eval forward of 2 images at {side} "
+              f"px: max |Δlogit| / max |logit|, card vs cpu float64 {gap:.3g} (gate "
+              f"{gate:.3g}); cpu fp32 from the init, one ulp up, one ulp down "
+              f"{', '.join(f'{g:.3g}' for g in spread)}; max |logit| "
+              f"{want.abs().max().item():.4g}; finite {finite}; {card_ms:.1f} ms ({card})")
+        if not (gap <= gate and finite):
+            fail(f"imagenet {model}: the card's 224-px forward is not the CPU's float64 one "
+                 f"({gap:.3g} > {gate:.3g})")
+        r = rec[f"forward {model}"] = {"card_vs_f64": gap, "gate": gate, "cpu_spread": spread,
+                                       "card_ms": card_ms}
+        if model in faults:
+            fault, planted = faults[model]
+            with planted, torch.no_grad():
+                bad = bundle.apply_eval(variables, xd)
+            g = _logit_gap(bad, want)
+            print(f"[imagenet] control, {model} with {fault}: card vs cpu float64 {g:.3g} "
+                  f"(gate {gate:.3g}): refused {g > gate}")
+            if not g > gate:
+                fail(f"imagenet control: the forward gate passed {model} with {fault}")
+            r["control"] = {"fault": fault, "card_vs_f64": g}
+        del bundle, variables, host_vars, got
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+
+def _base_framework_series(num_workers: int, comm_rounds: int) -> list:
+    """The template's per-round sums in plain Python (the JAX package's
+    ``tests/test_base_framework.py`` series)."""
+    g, out = 0.0, []
+    for _ in range(comm_rounds):
+        g = sum(0.5 * g / (i + 1) + (i + 1) * 0.01 for i in range(num_workers))
+        out.append(g)
+    return out
+
+
+def phase_imagenet(controls: bool = True, device: str = "cuda"):
+    """The ImageNet and Landmarks loaders at 224 px: every IMAGENET_PAIRS pair
+    through ``experiments.run.main`` (FedAvg, bf16, no augmentation) at full
+    width, IMAGENET_ROUNDS rounds (the first a warm-up); per pair the
+    parameter count, median round seconds and samples/s after the warm-up,
+    the final test accuracy and loss (finite), the peak memory and the conv
+    kernel's launches per forward (19 for ResNet-56, 18 of them tensor-core
+    in each bf16 training forward; none for the others, and no flash
+    launch).  Then the 224-px forward gates (``_imagenet_forwards``, with
+    ``controls`` the planted faults), and ``run.main --algorithm
+    base_framework`` on ``device``, its history equal to the plain-Python
+    series exactly.  ``device`` "cpu" rehearses the phase without a card."""
+    import statistics
+    import tempfile
+
+    import torch
+
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.models.resnet_tpu import CifarResNetTPU
+
+    card = smi_line() if device == "cuda" else "cpu"
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    launches = tc_launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        for dataset, model, extra in IMAGENET_PAIRS:
+            reset_launches()
+            if device == "cuda":
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            with _ForwardCounter(CifarResNetTPU) as fwd:
+                out = run.main(["--dataset", dataset, "--model", model, *extra,
+                                *IMAGENET_COMMON, "--device", device,
+                                "--run_dir", os.path.join(tmp, "runs")])
+            sync()
+            secs = time.perf_counter() - t0
+            seen = read_launches()
+            peak = torch.cuda.max_memory_allocated() / 2**30 if device == "cuda" else math.nan
+            hist, final = out["history"], out["final"]
+            round_s = statistics.median(r["time_round"] for r in hist[1:])
+            samples = statistics.median(r["count"] for r in hist[1:])
+            classes = 1000 if dataset == "ILSVRC2012" else 203
+            params = sum(p.numel() for p in _imagenet_bundle(
+                model, dataset, classes, "meta", library=True).module.parameters())
+            kernel = bool(extra)
+            tag = f"{dataset}+{model}" + ("+kernel" if kernel else "")
+            forwards = fwd.train + fwd.eval
+            r = {"params": params, "run_s": secs, "round_s": [row["time_round"] for row in hist],
+                 "median_round_s": round_s, "samples_per_round": samples,
+                 "samples_per_s": samples / round_s, "peak_gib": peak,
+                 "forwards": forwards, "train_forwards": fwd.train,
+                 "launches": seen["conv3x3_mxu"], "tc_launches": seen["conv3x3_mxu_tc"],
+                 "per_forward": seen["conv3x3_mxu"] / max(forwards, 1),
+                 "final": {k: v for k, v in final.items() if k.startswith(("test_", "train_"))}}
+            rec[tag] = r
+            launches += seen["conv3x3_mxu"]
+            tc_launches += seen["conv3x3_mxu_tc"]
+            finite = all(math.isfinite(v) for v in r["final"].values())
+            print(f"[imagenet] {tag}: {params} params, {len(hist)} rounds x {IMAGENET_CLIENTS} "
+                  f"clients (batch {IMAGENET_BATCH}, <= {IMAGENET_SAMPLES} samples each, "
+                  f"{IMAGENET_SIDE} px) "
+                  f"in {secs:.2f} s; median round {round_s:.4f} s after a warm-up, "
+                  f"{r['samples_per_s']:.1f} samples/s; test_acc {final['test_acc']:.4f} "
+                  f"test_loss {final['test_loss']:.4f}; finite {finite}; peak {peak:.2f} GiB; "
+                  f"conv3x3_mxu launches {seen['conv3x3_mxu']} ({seen['conv3x3_mxu_tc']} "
+                  f"tensor-core) for {forwards} forwards ({fwd.train} training) = "
+                  f"{r['per_forward']:.2f} per forward ({card})")
+            if not finite or final["test_count"] <= 0:
+                fail(f"imagenet {tag}: {final}")
+            if seen["flash_attention_fwd"]:
+                fail(f"imagenet {tag}: the flash kernel ran")
+            if kernel and not fwd.train:
+                fail(f"imagenet {tag}: no training forward was counted")
+            want = ((19 * forwards, TC_PER_FORWARD * fwd.train) if kernel else (0, 0))
+            if device == "cuda" and (seen["conv3x3_mxu"], seen["conv3x3_mxu_tc"]) != want:
+                fail(f"imagenet {tag}: conv launches {seen}, expected {want[0]} ({want[1]} "
+                     "tensor-core)")
+        rec.update(launches=launches, tc_launches=tc_launches)
+
+        reset_launches()
+        with deterministic():
+            _imagenet_forwards(device, controls, card, rec)
+
+        want = _base_framework_series(5, 4)
+        out = run.main(["--algorithm", "base_framework", "--client_num_in_total", "5",
+                        "--comm_round", "4", "--device", device,
+                        "--run_dir", os.path.join(tmp, "bf")])
+        same = out["history"] == want
+        print(f"[imagenet] run.main --algorithm base_framework (5 workers, 4 rounds) on "
+              f"{device}: history {out['history']} == the plain-Python series exactly {same}")
+        if not same:
+            fail(f"base_framework: {out['history']} != {want}")
+        rec["base_framework"] = {"history": out["history"], "equal": same}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[imagenet] phase time: {rec['phase_s']:.1f} s ({card})")
+    return rec
+
+
+def phase_comm(device: str = "cuda"):
+    """The message core on the card: ResNet-56's variables on ``device``, in
+    fp32 and in bf16, through ``tree_to_wire`` → ``Message.to_frame`` →
+    ``Message.from_frame_bytes`` → ``tree_from_wire`` back onto ``device``,
+    bit for bit, the frame's sha256 and ``wire_tree_digest`` equal to those
+    of the same message built from the CPU copy; then a qsgd8 delta
+    wiretree (one key) encoded on ``device``, its frame equal to the CPU's
+    and its decode equal to the CPU's decode, bit for bit."""
+    import hashlib
+
+    import torch
+
+    from fedml_tpu_torch.comm.message import (MSG_ARG_KEY_MODEL_PARAMS,
+                                              MSG_ARG_KEY_NUM_SAMPLES,
+                                              MSG_TYPE_C2S_SEND_MODEL, Message,
+                                              tree_from_wire, tree_to_wire)
+    from fedml_tpu_torch.compress import get_codec, wire_tree_digest
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+
+    def frame_of(tree, **kw):
+        wire = tree_to_wire(tree, **kw)
+        msg = (Message(MSG_TYPE_C2S_SEND_MODEL, 1, 0)
+               .add_params(MSG_ARG_KEY_MODEL_PARAMS, wire)
+               .add_params(MSG_ARG_KEY_NUM_SAMPLES, 64))
+        return wire, msg.to_frame()
+
+    def on_cpu(tree):
+        return {c: {k: v.cpu() for k, v in sub.items()} for c, sub in tree.items()}
+
+    base = resnet56_tpu(device=device).init(PRNGKey(0))
+    cases = [("fp32", base, {}), ("bf16", _tree_as(base, torch.bfloat16), {}),
+             ("qsgd8 delta", base, {"codec": get_codec("qsgd8"), "key": PRNGKey(7),
+                                    "delta": True})]
+    for name, tree, kw in cases:
+        (wire, frame), enc_ms = _ms_of(lambda: frame_of(tree, **kw), device)
+        host = on_cpu(tree)
+        host_wire, host_frame = frame_of(host, **kw)
+        back, dec_ms = _ms_of(lambda: tree_from_wire(
+            Message.from_frame_bytes(frame).get(MSG_ARG_KEY_MODEL_PARAMS), tree), device)
+        sha, host_sha = (hashlib.sha256(f).hexdigest() for f in (frame, host_frame))
+        digest, host_digest = wire_tree_digest(wire), wire_tree_digest(host_wire)
+        if "codec" in kw:
+            want = tree_from_wire(Message.from_frame_bytes(host_frame)
+                                  .get(MSG_ARG_KEY_MODEL_PARAMS), host)
+        else:
+            want = tree
+        same = _same_tensors(on_cpu(back), on_cpu(want)) and all(
+            v.device == tree[c][k].device for c, sub in back.items() for k, v in sub.items())
+        print(f"[comm] ResNet-56 {name}: frame {len(frame)} bytes, sha256 card == cpu "
+              f"{sha == host_sha}, wire_tree_digest card == cpu {digest == host_digest}, "
+              f"decoded on {device} equal bit for bit {same}; encode {enc_ms:.1f} ms, decode "
+              f"{dec_ms:.1f} ms ({card})")
+        if not (sha == host_sha and digest == host_digest and same):
+            fail(f"comm {name}: the frame or its decode differs between the card and the CPU")
+        rec[name] = {"frame_bytes": len(frame), "sha256": sha, "digest": digest,
+                     "encode_ms": enc_ms, "decode_ms": dec_ms}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[comm] phase time: {rec['phase_s']:.1f} s ({card})")
+    return rec
+
+
 def checkpoint_variables(path: str) -> list:
     """The model variables of a ``core/checkpoint.py`` npz of a
     ``ServerState``: its first leaves, up to where ``opt_state`` starts."""
@@ -2870,6 +3266,7 @@ def main() -> int:
 
     build_s = phase_build()
     cases = phase_kernels()
+    cases_224 = phase_kernels(CONV_SHAPES_224, N_224, [("bf16", True, False)])
     flash_cases = phase_flash_kernels()
     phase_check()
     phase_flash_check()
@@ -2886,13 +3283,15 @@ def main() -> int:
     algos_rec = phase_algos()
     standalone_rec = phase_standalone()
     family_rec = phase_family()
+    imagenet_rec = phase_imagenet()
+    comm_rec = phase_comm()
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
     train = [c for c in cases if c["dtype"] == "bf16" and c["moments"]]
 
-    def per_forward(key):
-        return sum(c[key] * c["per_forward"] for c in train)
+    def per_forward(key, rows=train):
+        return sum(c[key] * c["per_forward"] for c in rows)
 
     kernels = [{
         "name": "conv3x3_mxu",
@@ -2901,7 +3300,8 @@ def main() -> int:
         "replaces": "fedml_tpu/ops/conv_mxu.py:72",
         "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
                      + compress_rec["launches"] + silo_rec["launches"]
-                     + algos_rec["launches"] + standalone_rec["launches"]),
+                     + algos_rec["launches"] + standalone_rec["launches"]
+                     + imagenet_rec["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -2909,6 +3309,14 @@ def main() -> int:
         "bound_by": ("bytes" if per_forward("bytes_ms") >= per_forward("ops_ms")
                      else "operations"),
         "library_ms": per_forward("library_ms"),
+        # the same forward at the ImageNet loaders' 224 px (N_224 images)
+        "at_224px": {
+            "n": N_224, "launches": imagenet_rec["launches"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases_224),
+            **{k: per_forward(k, cases_224)
+               for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": ("bytes" if per_forward("bytes_ms", cases_224)
+                         >= per_forward("ops_ms", cases_224) else "operations")},
     }]
     # the flash kernel's row: the bench shape (bf16, causal) times the 12
     # layers of one forward, the fedllm main path's configuration
@@ -2937,6 +3345,8 @@ def main() -> int:
                        "pack": pack_rec, "zoo": zoo_rec, "silo": silo_rec,
                        "algos": algos_rec,
                        "standalone": standalone_rec, "family": family_rec,
+                       "cases_224": cases_224, "imagenet": imagenet_rec,
+                       "comm": comm_rec,
                        "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -369,12 +369,20 @@ def wire_tree_digest(wire_obj: dict) -> str:
     for leaf in wire_obj.get("leaves", ()):
         if isinstance(leaf, dict) and "enc" in leaf:
             for name in sorted(leaf["enc"]):
-                h.update(np.ascontiguousarray(np.asarray(leaf["enc"][name])).tobytes())
+                h.update(_leaf_bytes(leaf["enc"][name]))
         elif isinstance(leaf, dict) and NDARRAY_KEY in leaf:
             h.update(str(leaf[NDARRAY_KEY]).encode())
         else:
-            h.update(np.ascontiguousarray(np.asarray(leaf)).tobytes())
+            h.update(_leaf_bytes(leaf))
     return h.hexdigest()
+
+
+def _leaf_bytes(x) -> bytes:
+    """A payload's bytes in C order: a tensor's from the host (bf16 as its
+    bit pattern, as JAX's ``ml_dtypes`` array holds it), numpy's as is."""
+    if isinstance(x, torch.Tensor):
+        return _to_numpy(x).tobytes()
+    return np.ascontiguousarray(np.asarray(x)).tobytes()
 
 
 # --- the fused form ---------------------------------------------------------------

@@ -1,6 +1,6 @@
 """PIL-backed image-folder parsing for the folder-tree loaders (numpy
-copy of ``fedml_tpu/data/imagefolder.py``): CINIC-10's, and the ImageNet
-and Landmarks loaders' still to come.
+copy of ``fedml_tpu/data/imagefolder.py``): CINIC-10's and the ImageNet
+and Landmarks loaders' (``data/imagenet.py``).
 
 Reference semantics reproduced here:
 

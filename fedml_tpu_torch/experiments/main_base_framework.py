@@ -1,0 +1,12 @@
+"""Entry shim: the base-framework template (reference parity with
+``fedml_experiments/distributed/base_framework``).
+
+    python -m fedml_tpu_torch.experiments.main_base_framework [--client_num_in_total N ...]
+"""
+
+import sys
+
+from fedml_tpu_torch.experiments.run import main
+
+if __name__ == "__main__":
+    main(["--algorithm", "base_framework", *sys.argv[1:]])

@@ -4,12 +4,11 @@
 Every model name of the JAX registry is routed: ``lr``, ``rnn``,
 ``cnn``, ``resnet18_gn``, the CIFAR ResNets (``resnet20/32/44/56/110``),
 ``mobilenet``, ``mobilenet_v3``, ``efficientnet`` and ``vgg11`` …
-``vgg19_bn``.  So is every dataset but the ImageNet and Landmarks
-folder trees: ``mnist``, ``cifar10``, ``cifar100``, ``cinic10``,
-``femnist``, ``fed_cifar100``, ``shakespeare``, ``fed_shakespeare``,
-``stackoverflow_lr``, ``stackoverflow_nwp`` and ``synthetic``.
-``ILSVRC2012``/``imagenet`` and ``gld23k``/``gld160k`` raise
-``NotImplementedError`` naming the ROADMAP item that ports them.
+``vgg19_bn``.  So is every dataset: ``mnist``, ``cifar10``,
+``cifar100``, ``cinic10``, ``femnist``, ``fed_cifar100``,
+``shakespeare``, ``fed_shakespeare``, ``stackoverflow_lr``,
+``stackoverflow_nwp``, ``ILSVRC2012``/``imagenet`` and
+``gld23k``/``gld160k`` (at 224 px) and ``synthetic``.
 """
 
 from __future__ import annotations
@@ -19,12 +18,6 @@ from typing import Optional
 from fedml_tpu_torch.core.types import FedDataset
 from fedml_tpu_torch.models.base import ModelBundle
 from fedml_tpu_torch.utils.device import DeviceLike
-
-
-def _not_ported(name: str):
-    return NotImplementedError(
-        f"dataset {name!r} is not ported to fedml_tpu_torch yet (ROADMAP.md, "
-        "queue A item 3b: the ImageNet and Landmarks loaders)")
 
 
 def load_data(
@@ -78,8 +71,14 @@ def load_data(
 
         return load_stackoverflow_nwp(data_dir or "./data/stackoverflow",
                                       num_clients, seed=seed)
-    if dataset in ("ILSVRC2012", "imagenet", "gld23k", "gld160k"):
-        raise _not_ported(dataset)
+    if dataset in ("ILSVRC2012", "imagenet"):
+        from fedml_tpu_torch.data.imagenet import load_imagenet
+
+        return load_imagenet(data_dir or "./data/ImageNet", num_clients, seed=seed)
+    if dataset in ("gld23k", "gld160k"):
+        from fedml_tpu_torch.data.imagenet import load_landmarks
+
+        return load_landmarks(data_dir or "./data/gld", variant=dataset, seed=seed)
     if dataset == "synthetic":
         from fedml_tpu_torch.data.synthetic import synthetic_classification
 

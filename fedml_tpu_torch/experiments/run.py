@@ -34,14 +34,17 @@ class-prototype stand-in) and ``fedllm`` on one device
 CNN cut at its flatten), ``vfl`` (a guest and a host over the
 lending-club table) and ``fednas`` (the DARTS search, ``--arch_order 1|2``,
 then with ``--stage train`` the FedAvg engine on the genotype); their
-history logged after the run; ``--checkpoint_every/--checkpoint_dir/--resume``
+history logged after the run; ``base_framework``, the cross-device
+runtime's tutorial template (no model, no data: scalar local results
+summed over the in-process message bus, the per-round sums its
+history); ``--checkpoint_every/--checkpoint_dir/--resume``
 (the FedAvg-engine family), ``--crash_at_round`` with the JAX package's
 semantics, and ``--compress/--compress_ef`` (update compression with
 error feedback) on the FedAvg engine's own round kernel (FedNova builds
-its own and refuses it).  ``base_framework`` and the knobs whose
-machinery is not ported yet (``tp_degree``/``sp_degree``/``mesh``) raise
-``NotImplementedError`` naming their ROADMAP item; so does ``--compress``
-outside the FedAvg engine, which the JAX package ignores there.
+its own and refuses it).  The knobs whose machinery is not ported yet
+(``tp_degree``/``sp_degree``/``mesh``) raise ``NotImplementedError``
+naming their ROADMAP item; so does ``--compress`` outside the FedAvg
+engine, which the JAX package ignores there.
 ``--conv_variant kernel`` (the port's own flag) runs ResNet-56 with every
 3x3 conv on the Hopper kernel (centralized, decentralized and
 turboaggregate too; fedgkt, splitnn, vfl and fednas build their own
@@ -233,16 +236,8 @@ _STANDALONE = frozenset(("centralized", "decentralized", "turboaggregate", "fedg
 # the drivers that build their own models (in float32, on library convs)
 _OWN_MODELS = frozenset(("fedgkt", "splitnn", "vfl", "fednas"))
 
-# what is still to port, and the ROADMAP item that names it
-_UNPORTED = {
-    "base_framework": "queue A item 5: the cross-device runtime (comm/)",
-}
-
-
 def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Fail before any work on a knob whose machinery is not ported."""
-    if cfg.algorithm in _UNPORTED:
-        raise _not_ported(f"algorithm {cfg.algorithm!r}", _UNPORTED[cfg.algorithm])
     if cfg.tp_degree > 1 or cfg.sp_degree > 1 or cfg.mesh or cfg.partition_rules:
         raise _not_ported("tp_degree/sp_degree/mesh (the multi-device engines)",
                           "queue A item 6: transformer and parallel")
@@ -309,6 +304,12 @@ def run_experiment(cfg: ExperimentConfig, log_fn=print, metrics=None) -> dict:
 def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
     """Build data, model and simulation, and run."""
     device = resolve_device(cfg.device or None)
+    if cfg.algorithm == "base_framework":  # the tutorial template: no model, no data
+        from fedml_tpu_torch.algorithms.base_framework import run_base_framework
+
+        hist = run_base_framework(cfg.client_num_in_total, cfg.comm_round)
+        return {"history": hist, "final": hist[-1] if hist else None,
+                "wall_s": time.time() - t0}
     if cfg.algorithm == "vfl":  # vertical FL reads its own tabular data
         return _run_vfl(cfg, device, t0)
     ds = shrink_dataset(

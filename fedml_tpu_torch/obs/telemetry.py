@@ -33,6 +33,19 @@ def metric_key(name: str, labels: Optional[Dict[str, Any]] = None) -> str:
     return f"{name}{{{inner}}}"
 
 
+def parse_metric_key(key: str):
+    """Inverse of ``metric_key``: ``(name, labels dict)``."""
+    if not key.endswith("}") or "{" not in key:
+        return key, {}
+    name, _, inner = key.partition("{")
+    labels = {}
+    for part in inner[:-1].split(","):
+        if "=" in part:
+            k, _, v = part.partition("=")
+            labels[k] = v
+    return name, labels
+
+
 class Histogram:
     """Log2-bucketed histogram: O(1) memory per decade of dynamic range."""
 
@@ -84,6 +97,23 @@ class Telemetry:
         self.gauges: Dict[str, float] = {}
         self.hists: Dict[str, Histogram] = {}
         self._events: deque = deque(maxlen=max_events)
+        # taps: single callbacks run outside the lock after an event or an
+        # observation lands, the flight recorder's feed (``obs/flight.py``);
+        # a plain attribute swap, so readers see the old tap or the new one
+        self._event_tap = None
+        self._observe_tap = None
+
+    # -- taps ---------------------------------------------------------------
+    def set_event_tap(self, fn) -> None:
+        """Install the single event tap (``fn(record_dict)``), called after
+        every ``event()`` append outside the lock; its exceptions are
+        swallowed.  ``None`` uninstalls."""
+        self._event_tap = fn
+
+    def set_observe_tap(self, fn) -> None:
+        """Install the single histogram tap (``fn(name, value, labels)``),
+        called after every accepted ``observe()``, as the event tap."""
+        self._observe_tap = fn
 
     # -- counters -----------------------------------------------------------
     def inc(self, name: str, value: float = 1.0, **labels) -> None:
@@ -110,6 +140,12 @@ class Telemetry:
             if h is None:
                 h = self.hists[key] = Histogram()
             h.observe(value)
+        tap = self._observe_tap
+        if tap is not None:
+            try:
+                tap(name, value, labels)
+            except Exception:
+                pass  # the tap must never break the emitter
 
     # -- events -------------------------------------------------------------
     def event(self, kind: str, **fields) -> dict:
@@ -119,6 +155,12 @@ class Telemetry:
         rec = {"kind": kind, "ts": time.time(), **fields}
         with self._lock:
             self._events.append(rec)
+        tap = self._event_tap
+        if tap is not None:
+            try:
+                tap(rec)
+            except Exception:
+                pass  # the tap must never break the emitter
         return rec
 
     def drain_events(self) -> List[dict]:
@@ -136,6 +178,13 @@ class Telemetry:
                 "gauges": dict(self.gauges),
                 "hists": {k: h.snapshot() for k, h in self.hists.items()},
             }
+
+    def reset(self) -> None:
+        with self._lock:
+            self.counters.clear()
+            self.gauges.clear()
+            self.hists.clear()
+            self._events.clear()
 
 
 _GLOBAL = Telemetry()

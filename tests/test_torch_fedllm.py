@@ -143,10 +143,46 @@ def test_run_main_on_cpu(tmp_path, argv):
 _NOT_PORTED = (NotImplementedError, "ROADMAP")
 
 
+def _base_framework_runs(tmp_path, monkeypatch, extra):
+    """base_framework runs through the entry point (--ci 1: 3 workers, 2
+    rounds), its history the template's series."""
+    out = run.main([*extra, "--device", "cpu", "--ci", "1", "--run_dir", str(tmp_path)])
+    g, want = 0.0, []
+    for _ in range(2):
+        g = sum(0.5 * g / (i + 1) + (i + 1) * 0.01 for i in range(3))
+        want.append(g)
+    assert out["history"] == want
+
+
+def _routes_the_loader(tmp_path, monkeypatch, extra):
+    """The dataset loads through the registry (its 224-px stand-in's
+    geometry asked of the loader), the model is the JAX registry's for it,
+    and it trains unaugmented, as in the JAX entry point."""
+    from fedml_tpu.experiments import registry as jregistry
+    from fedml_tpu_torch.data import imagenet
+    from fedml_tpu_torch.experiments import registry
+    from test_torch_imagenet_data import _Recorder
+
+    cfg = run.ExperimentConfig(**dict(zip((a[2:] for a in extra[::2]), extra[1::2])))
+    rec = _Recorder()
+    monkeypatch.setattr(imagenet, "synthetic_classification", rec)
+    ds = registry.load_data(cfg.dataset, "no-such-dir", 3)
+    want = {"ILSVRC2012": (1000, 3), "gld23k": (203, 50)}[cfg.dataset]
+    assert (ds.num_classes, ds.num_clients) == want
+    assert rec.calls[0]["input_shape"] == (224, 224, 3)
+    assert run._augment_fn(cfg, ds) is None
+    shape = (224, 224, 3)
+    bundle = registry.create_model(cfg.model, cfg.dataset, ds.num_classes, input_shape=shape,
+                                   device="meta")
+    jbundle = jregistry.create_model(cfg.model, cfg.dataset, ds.num_classes, input_shape=shape)
+    assert type(bundle.module).__name__ == type(jbundle.module).__name__
+    assert tuple(bundle.input_shape) == tuple(jbundle.input_shape) == shape
+
+
 @pytest.mark.parametrize("extra,refusal", [
-    # the whole algorithm family is ported; base_framework (the
-    # cross-device runtime's tutorial driver) is not yet
-    (["--algorithm", "base_framework"], _NOT_PORTED),
+    # the whole algorithm family is ported, base_framework (the cross-device
+    # runtime's tutorial template) the last of it
+    (["--algorithm", "base_framework"], _base_framework_runs),
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--tp_degree", "2"],
      _NOT_PORTED),
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--mesh", "dp,mp"],
@@ -158,14 +194,18 @@ _NOT_PORTED = (NotImplementedError, "ROADMAP")
     # fedavg checkpoints now; fedllm has no checkpoint wiring (nor in JAX)
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare",
       "--checkpoint_every", "1"], (SystemExit, "no checkpoint wiring")),
-    # the CIFARs and CINIC-10 load and augment now; ImageNet's loader (and
-    # its augment) waits for queue A item 3b
-    (["--algorithm", "fedavg", "--dataset", "ILSVRC2012"], _NOT_PORTED),
-    # every model is routed now (mobilenet too); the Landmarks loader is not
+    # ImageNet's loader is ported, and ImageNet trains unaugmented
+    (["--algorithm", "fedavg", "--dataset", "ILSVRC2012"], _routes_the_loader),
+    # every model is routed, on the Landmarks loader too
     (["--algorithm", "fedavg", "--dataset", "gld23k", "--model", "mobilenet"],
-     _NOT_PORTED),
+     _routes_the_loader),
 ], ids=["fedprox", "tp", "mesh", "compress", "checkpoint", "augment", "mnist"])
-def test_run_refuses_what_is_not_ported(tmp_path, extra, refusal):
+def test_run_refuses_what_is_not_ported(tmp_path, monkeypatch, extra, refusal):
+    """Each case a refusal (exception, match), or a route that runs now (a
+    check of it)."""
+    if callable(refusal):
+        refusal(tmp_path, monkeypatch, extra)
+        return
     exc, match = refusal
     with pytest.raises(exc, match=match):
         run.main([*extra, "--device", "cpu", "--ci", "1", "--run_dir", str(tmp_path)])

@@ -74,7 +74,7 @@ def test_port_sources_import_neither_jax_nor_the_jax_package(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "flax", "optax", "fedml_tpu"), (
+            assert top not in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "fedml_tpu"), (
                 f"{path}: imports {name}")
 
 

@@ -462,7 +462,10 @@ def test_run_main_fedgkt_two_server_epochs_tracks_float64(tmp_path, monkeypatch)
     (["--algorithm", "fednas", "--arch_order", "3"], (ValueError, "arch_order")),
     (["--algorithm", "splitnn", "--compress", "int8"], (NotImplementedError, "C4")),
     (["--algorithm", "vfl", "--checkpoint_every", "1"], (SystemExit, "no checkpoint wiring")),
-    (["--algorithm", "base_framework"], (NotImplementedError, "queue A item 5")),
+    # base_framework runs (tests/test_torch_base_framework.py); its compiled
+    # form, a psum over a clients mesh, waits for the parallel engines
+    (["--algorithm", "base_framework", "--mesh", "dp,mp"],
+     (NotImplementedError, "queue A item 6")),
     (["--algorithm", "fedgkt", "--conv_variant", "kernel"], (ValueError, "conv_variant")),
     (["--algorithm", "fedgkt", "--compute_dtype", "bf16"], (ValueError, "compute_dtype")),
     (["--algorithm", "turboaggregate", "--compress", "int8"],

@@ -3,8 +3,8 @@
 the registry, with finite metrics and the multi-label record's
 precision and recall; the femnist + cnn history (dropout, shuffled
 local epochs) equal to the JAX ``run.main``'s within 1e-4; the registry
-accepting every zoo pair and the five CIFAR ResNets, and still refusing
-the datasets it has not ported."""
+accepting every zoo pair and the five CIFAR ResNets, and routing the
+ImageNet and Landmarks loaders."""
 
 import math
 
@@ -104,8 +104,21 @@ def test_registry_builds_the_jax_registrys_model(dataset, model):
     ("dataset", "imagenet"), ("dataset", "ILSVRC2012"), ("dataset", "gld23k"),
     ("dataset", "gld160k"),
 ])
-def test_registry_still_refuses_the_rest_of_the_zoo(kind, name):
-    """Every model name is routed; the ImageNet and Landmarks loaders wait
-    for queue A item 3b."""
-    with pytest.raises(NotImplementedError, match="queue A item 3"):
-        registry.load_data(name, data_dir="no-such-dir")
+def test_registry_still_refuses_the_rest_of_the_zoo(monkeypatch, kind, name):
+    """Nothing of the zoo is refused now: the ImageNet and Landmarks loaders
+    are routed, each asked for its 224-px stand-in's geometry (1000 / 203 /
+    2028 classes; the given clients for ImageNet, Landmarks' 233 / 1262 cut
+    to 50), as by the JAX registry."""
+    from fedml_tpu_torch.data import imagenet
+    from test_torch_imagenet_data import _Recorder
+
+    rec = _Recorder()
+    monkeypatch.setattr(imagenet, "synthetic_classification", rec)
+    assert kind == "dataset"
+    ds = registry.load_data(name, data_dir="no-such-dir")
+    want = {"imagenet": (1000, 10), "ILSVRC2012": (1000, 10), "gld23k": (203, 50),
+            "gld160k": (2028, 50)}[name]
+    assert (ds.num_classes, ds.num_clients) == want
+    assert rec.calls[0]["input_shape"] == (224, 224, 3)
+    assert rec.calls[0]["partition"] == ("homo" if name in ("imagenet", "ILSVRC2012")
+                                         else "power_law")
