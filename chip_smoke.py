@@ -63,7 +63,8 @@ Phases, in order; any failure exits non-zero:
              on the CPU and against jax 0.9.0's known answers
              (tests/threefry_known_answers.json).
 7. north_star — ``fedml_tpu_torch.bench.build_north_star`` at its full cut
-             (ResNet-56 on the conv kernel, 10 clients x 24 steps x batch 64,
+             (a warm-up round of one client, then one timed round;
+             ResNet-56 on the conv kernel, 10 clients x 24 steps x batch 64,
              bf16), one warm-up round and one timed round; 19 conv launches
              per forward, 18 of them on the tensor-core route.
 8. sim     — ``FedAvgSimulation`` over the kernel ResNet-56 (bf16,
@@ -90,7 +91,7 @@ Phases, in order; any failure exits non-zero:
              CPU's (sha256); the codec stage's time and kernel launches per
              client (fused, and the per-leaf plain version), and its share
              of a 4 x 8 x 64 round, timed in turns with the same round
-             without a codec.
+             without a codec (twice each way).
 11. pack   — the native row-gather packer must have built and loaded; the
              pack time of a 10 x 1536-image cohort, native and numpy.
 12. zoo    — the cross-device zoo at full width through
@@ -99,7 +100,7 @@ Phases, in order; any failure exits non-zero:
              2xLSTM(256) on shakespeare and fed_shakespeare, the LSTM(670)
              on stackoverflow_nwp and the multi-label lr on
              stackoverflow_lr, each with the SGD lr and batch of the JAX
-             package's convergence record, 3 rounds of 10 sampled clients
+             package's convergence record, 2 rounds of 10 sampled clients
              (the first a warm-up); per pair the parameter count, median
              round ms, samples/s (tokens/s for the LSTMs) and final test
              metrics (precision and recall for stackoverflow_lr), all
@@ -172,14 +173,13 @@ Phases, in order; any failure exits non-zero:
              ``loan_processed.npz`` (2 parties, batch 256, one epoch:
              steps/s, loss, AUC), the first 16 steps within 1e-5 of the
              CPU's; FedNAS search + train stage at arch_order 1 and 2 (C 8,
-             4 layers, 4 clients x 16, batch 16, 2 rounds: seconds per
-             round, genotype), one order-2 search round (2 clients of 16
+             4 layers, 4 clients x 16, batch 16, one round each: seconds
+             per round, genotype), one order-2 search round (2 clients of 16
              and 8, 16x16, batch 8, a pad-only batch) card fp32 against the
              CPU's float64 round (run in a process of its own meanwhile):
              variables within 0.05, alphas whose gradient is not near zero
-             within 0.05; and one round at darts_search's defaults (C 16,
-             8 layers, 32x32, 1 client x 1 step of 64, order 2: ms per
-             step, peak memory).  Neither kernel runs.
+             within 0.05, with its ms and peak memory.  Neither kernel
+             runs.
              ``phase_family(controls=True)`` adds planted faults (a ring
              shuffled as in epoch 1; FedNAS with equal client weights,
              the valid batch one step off, no alpha step, a pad-only
@@ -210,6 +210,26 @@ Phases, in order; any failure exits non-zero:
              card bit for bit, the frame's sha256 and ``wire_tree_digest``
              equal to those built from the CPU copy; a qsgd8 delta wiretree
              encoded on the card, its frame the CPU's.
+19. xdevice — cross-device FedAvg through the managers of
+             ``algorithms/fedavg_cross_device.py`` over the in-process bus:
+             ResNet-56 at full width on the conv kernel (bf16, the CIFAR-10
+             stand-in at Dirichlet 0.5, 4 clients of <= 128 samples, batch
+             64, 3 rounds, the first a warm-up, cuDNN deterministic).  Sync,
+             held against FedAvgSimulation on the card: round 0's aggregate
+             within 1e-6, the last round (the simulation's from the
+             federation's previous global) within 1e-5, a planted fault (a
+             doubled sample count) beyond both; the free-running gap after 3
+             rounds and the last round's one-ulp spread printed;
+             round 1's sync and upload frames card == CPU by sha256; qsgd8
+             + EF uploads with the delta broadcast run twice, the upload
+             digests equal; async (cut 2 of 4, poly 0.5, a delayed client)
+             folding stale uploads, and at cut 4 and alpha 0 equal to the
+             sync run bit for bit; a ChaosBackend NaN upload rejected and
+             counted, a x10 attacker clipped by the norm bound, and the
+             median close equal to the host median of the decoded uploads.
+             Per case the median round, uploads/s, encode/decode/fold ms per
+             upload, frame bytes and conv launches per client forward (19,
+             18 tensor-core), no flash launch.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -313,7 +333,10 @@ ZOO = [
     ("stackoverflow_nwp", "rnn", 16, 0.31622776601683794, 64, 20, 10004, (20,)),
     ("stackoverflow_lr", "lr", 10, 0.03, 64, None, 500, (10000,)),
 ]
-ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 10, 3, 512
+ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 10, 2, 512
+# [compress]: the codec stage's share of a 4 x 8 x 64 round, the plain and
+# int8 + EF rounds timed in turns (plain, int8, int8, plain) this many times
+COMPRESS_TURNS = 2
 
 # [silo]: FedML's cross-silo benchmark rows (BASELINE.md, "Cross-silo DNNs":
 # FedAvg, LDA alpha 0.5, SGD lr 1e-3, wd 1e-3, batch 64) through
@@ -436,8 +459,11 @@ ALGO_IDENTITIES = [("fedprox_mu0", "fedavg", ALGO_ROUNDS, 0.0),
 # 128 CIFAR-10 stand-in samples, batch 64, 2 rounds, 256 test samples, seed 0);
 # fedgkt runs its own pair (resnet8_56 clients, resnet56_server) in fp32 on
 # library convs, so it drops --conv_variant/--compute_dtype
+# centralized trains on the whole 5,000-image stand-in: one epoch
+CENTRAL_EPOCHS = 1
 STANDALONE_CASES = [
-    ("centralized", ["--algorithm", "centralized", *ALGO_COMMON]),
+    ("centralized", ["--algorithm", "centralized", *ALGO_COMMON, "--comm_round",
+                     str(CENTRAL_EPOCHS)]),
     ("decentralized", ["--algorithm", "decentralized", *ALGO_COMMON]),
     ("turboaggregate", ["--algorithm", "turboaggregate", *ALGO_COMMON]),
     ("fedgkt", ["--algorithm", "fedgkt", "--epochs_server", "1",
@@ -453,8 +479,8 @@ ZOO_ROUND_RTOL = 1e-4
 # SplitNN: 512 samples each, batch 64, one ring epoch (the McMahan CNN's
 # halves at full width: 32/64 channels, a 512-wide dense layer) at SGD lr
 # 0.003, where the loss falls (at 0.01 it rises past ln 10).  FedNAS: 16
-# samples each (one step of 16 a round), 2 rounds of search (the entry
-# point's darts_search(C=8, layers=4)) then 2 of train, at arch_order 1 and 2.
+# samples each (one step of 16 a round), one round of search (the entry
+# point's darts_search(C=8, layers=4)) then one of train, at arch_order 1 and 2.
 FAMILY_COMMON = ["--dataset", "cifar10", "--client_num_in_total", "4",
                  "--client_num_per_round", "4", "--partition_method", "homo", "--seed", "0"]
 SPLIT_ARGV = ["--algorithm", "splitnn", *FAMILY_COMMON, "--max_samples_per_client", "512",
@@ -462,7 +488,7 @@ SPLIT_ARGV = ["--algorithm", "splitnn", *FAMILY_COMMON, "--max_samples_per_clien
               "--lr", "0.003"]
 NAS_ARGV = ["--algorithm", "fednas", "--stage", "train", *FAMILY_COMMON,
             "--max_samples_per_client", "16", "--max_test_samples", "256", "--batch_size",
-            "16", "--comm_round", "2"]
+            "16", "--comm_round", "1"]
 # [family] SplitNN: the fp32 ring is chaotic (a ReLU pre-activation within
 # fp32's rounding of zero takes the other side in float64, and the runs
 # part from there; the CPU's fp32 epoch from an init one ulp off lands as
@@ -487,9 +513,6 @@ VFL_ROWS, VFL_BATCH, VFL_CHECK_STEPS, VFL_TOL = 262144, 256, 16, 1e-5
 # planted faults of phase_family's controls (readings: PERF.md §6).
 NAS_CHECK = (16, 8, 16, 8)  # clients' samples, crop, batch
 NAS_VARS_RTOL, NAS_ALPHA_RTOL, NAS_MASK_TAU = 0.05, 0.05, 0.1
-# one FedNAS search round at darts_search's defaults (C 16, 8 layers, 32x32):
-# 1 client x 1 step of batch 64 (the entry point's default batch), arch_order 2
-NAS_REF_CLIENTS, NAS_REF_STEPS, NAS_REF_BATCH = 1, 1, 64
 
 
 def augment_images(n: int):
@@ -1139,7 +1162,8 @@ def phase_rng():
 
 
 def phase_north_star(profile: bool):
-    """build_north_star at its own cut, one warm-up and one timed round."""
+    """build_north_star at its own cut: a warm-up round of one client (the
+    same steps), then one timed round of the whole cohort."""
     import numpy as np
     import torch
 
@@ -1153,7 +1177,8 @@ def phase_north_star(profile: bool):
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    state, m = round_fn(state, *args)  # warm-up round
+    # warm-up round: one client of the cohort, the same 24 steps
+    state, m = round_fn(state, *(a[:1] for a in args))
     float(m["loss_sum"].sum())
     warm_s = time.perf_counter() - t0
     reset_launches()
@@ -1169,7 +1194,7 @@ def phase_north_star(profile: bool):
            "launches": seen["conv3x3_mxu"], "tc_launches": seen["conv3x3_mxu_tc"],
            "forwards": fwd}
     print(f"[north_star] build_north_star(conv_variant='kernel'): {clients} clients x "
-          f"{steps} steps x batch {batch}, bf16: setup {setup_s:.2f} s, warm-up round "
+          f"{steps} steps x batch {batch}, bf16: setup {setup_s:.2f} s, one-client warm-up round "
           f"{warm_s:.3f} s, timed round {secs:.3f} s = {sps:.1f} samples/s "
           f"({rec['step_ms']:.2f} ms per step), loss {loss.tolist()}, conv3x3_mxu "
           f"launches {seen['conv3x3_mxu']} ({seen['conv3x3_mxu_tc']} tensor-core) for "
@@ -1806,13 +1831,13 @@ def phase_compress():
     for name in rounds:  # warm-up
         round_s(name)
     times = {name: [] for name in rounds}
-    for name in ("plain", "int8_ef", "int8_ef", "plain") * 3:
+    for name in ("plain", "int8_ef", "int8_ef", "plain") * COMPRESS_TURNS:
         times[name].append(round_s(name))
     plain_s, comp_s = (float(np.median(times[n])) for n in ("plain", "int8_ef"))
     q1, q3 = np.percentile(times["plain"], [25, 75])
     share = (comp_s - plain_s) / comp_s
     print(f"[compress] round of {clients} clients x {steps} steps x batch {batch} (bf16, "
-          f"kernel conv), 3 x in turns plain/int8+EF/int8+EF/plain: plain "
+          f"kernel conv), {COMPRESS_TURNS} x in turns plain/int8+EF/int8+EF/plain: plain "
           f"{[round(t, 4) for t in times['plain']]} s, int8 + EF "
           f"{[round(t, 4) for t in times['int8_ef']]} s; medians {plain_s:.4f} / "
           f"{comp_s:.4f} s (the plain rounds' interquartile spread {q3 - q1:.4f} s): the "
@@ -2645,7 +2670,7 @@ def phase_standalone(device: str = "cuda"):
     eval_fwd = math.ceil(len(ds.test_y) / 64)
     # centralized trains on the whole train set (the JAX driver ignores the
     # per-client cap): every epoch ceil(n / batch) steps
-    train_fwd = {"centralized": ALGO_ROUNDS * math.ceil(len(ds.train_y) / ALGO_BATCH),
+    train_fwd = {"centralized": CENTRAL_EPOCHS * math.ceil(len(ds.train_y) / ALGO_BATCH),
                  "decentralized": ALGO_ROUNDS * ALGO_CLIENTS * steps,
                  "turboaggregate": ALGO_ROUNDS * ALGO_CLIENTS * steps, "fedgkt": 0}
     timed = {"centralized": (CentralizedTrainer, "train"),
@@ -3135,15 +3160,13 @@ def _family_fednas(device, tmp, card, reference, controls):
     ``_start_nas_reference`` and its output file): the variables within
     NAS_VARS_RTOL of each leaf's largest magnitude, and the alphas within
     NAS_ALPHA_RTOL where the float64 gradient is not near zero
-    (``_nas_gaps``); ``controls`` adds ``_nas_controls``.  Last, one round
-    at darts_search's defaults: ms per step and peak memory."""
+    (``_nas_gaps``), with the round's ms and peak memory; ``controls`` adds
+    ``_nas_controls``."""
     import numpy as np
     import torch
 
-    from fedml_tpu_torch.algorithms.fednas import FedNASConfig, FedNASSearch
+    from fedml_tpu_torch.algorithms.fednas import FedNASSearch
     from fedml_tpu_torch.experiments import run
-    from fedml_tpu_torch.experiments.registry import load_data, shrink_dataset
-    from fedml_tpu_torch.models.darts.search import darts_search
 
     r = {}
     for order in (1, 2):
@@ -3167,6 +3190,8 @@ def _family_fednas(device, tmp, card, reference, controls):
             fail(f"family fednas arch_order {order}: non-finite {final}")
 
     checked = _nas_check_search(device, np.float32)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     _, round_ms = _ms_of(checked.run_round, device)
     t0 = time.perf_counter()
     ref = _nas_reference_result(*reference)
@@ -3184,31 +3209,12 @@ def _family_fednas(device, tmp, card, reference, controls):
           f"{round_ms:.1f} ms ({card})")
     if not passes(var, alpha):
         fail("family fednas: the card's search round is not the CPU's float64 round")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else float("nan")
+    print(f"[family] fednas peak device memory in that round: {peak:.3f} GiB ({card})")
     r["card_vs_f64"] = {"variables": var, "leaf": leaf, "alphas": alpha, "round_ms": round_ms,
-                        "reference_wait_s": wait_s}
+                        "reference_wait_s": wait_s, "peak_gib": peak}
     if controls:
         r["card_vs_f64"]["controls"] = _nas_controls(device, ref, passes, card)
-
-    # darts_search's defaults (C 16, 8 layers, 32x32), arch_order 2
-    ds = shrink_dataset(load_data("cifar10", "", NAS_REF_CLIENTS, "homo", 0.5, 0),
-                        NAS_REF_STEPS * NAS_REF_BATCH, 64)
-    search = FedNASSearch(darts_search(device=device), ds, FedNASConfig(
-        num_clients=NAS_REF_CLIENTS, clients_per_round=NAS_REF_CLIENTS,
-        batch_size=NAS_REF_BATCH, arch_order=2), device=device)
-    if device == "cuda":
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-    _, round_ms = _ms_of(search.run_round, device)
-    steps = NAS_REF_CLIENTS * NAS_REF_STEPS
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if device == "cuda" else float("nan")
-    r["reference_geometry"] = {"round_ms": round_ms, "ms_per_step": round_ms / steps,
-                               "peak_gib": peak}
-    print(f"[family] fednas search at darts_search's defaults (C 16, 8 layers, 32x32), "
-          f"arch_order 2, {NAS_REF_CLIENTS} x {NAS_REF_STEPS} client steps of "
-          f"{NAS_REF_BATCH}: {round_ms:.1f} ms per round ({card})")
-    print(f"[family] fednas ms per search step (packing and aggregation included): "
-          f"{round_ms / steps:.1f} ({card})")
-    print(f"[family] fednas peak device memory: {peak:.3f} GiB ({card})")
     return r
 
 
@@ -3245,6 +3251,472 @@ def phase_family(device: str = "cuda", controls: bool = False):
     print(f"[family] phase time: {rec['phase_s']:.1f} s ({card})")
     if seen["conv3x3_mxu"] or seen["flash_attention_fwd"]:
         fail(f"family: a path launched a kernel of the JAX package's Pallas paths: {seen}")
+    return rec
+
+
+# [xdevice]: cross-device FedAvg over the in-process bus (the managers of
+# algorithms/fedavg_cross_device.py): ResNet-56 at full width on the conv
+# kernel, bf16 compute, the CIFAR-10 stand-in with Dirichlet(0.5) clients cut
+# to <= XD_SAMPLES samples each (2 steps of 64), 4 clients, 3 rounds (the first
+# a warm-up), SGD lr 1e-3 momentum 0.9 wd 1e-3 as [main].  Round 0's aggregate
+# is held to the simulation's at XD_ROUND0_TOL (only the folds differ: float64
+# on the host against fp32 on the card); the last round, the simulation's
+# taken from the federation's previous global, at XD_FINAL_TOL (readings, and
+# why not at a one-ulp spread: PERF.md §6).
+XD_CLIENTS, XD_BATCH, XD_SAMPLES, XD_ROUNDS = 4, 64, 128, 3
+XD_ROUND0_TOL, XD_FINAL_TOL = 1e-6, 1e-5
+XD_NORM_BOUND = 1.0  # the streaming defense's clip, far below a x10 upload
+
+
+def _host_gap(got: dict, want: dict, floor: float = 1.0) -> tuple:
+    """(max over the leaves of max |Δ| / max(floor, max |leaf of want|), that
+    leaf) for two variable trees of numpy arrays or tensors.  ``floor`` 1 is
+    ``_round_gap``'s measure (relative for a large leaf, absolute for a
+    small one); a tiny ``floor`` gives the gap relative to each leaf."""
+    import numpy as np
+
+    from fedml_tpu_torch.compress import jax_leaves
+    from fedml_tpu_torch.core.tree import host_array
+
+    g = dict(jax_leaves(got))
+    worst = (0.0, "")
+    for path, w in jax_leaves(want):
+        w64 = np.asarray(host_array(w), np.float64)
+        d = np.abs(np.asarray(host_array(g[path]), np.float64) - w64).max()
+        worst = max(worst, (float(d / max(np.abs(w64).max(), floor)), ".".join(path)))
+    return worst
+
+
+def _xd_problem(device):
+    import torch
+
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.core.types import cohort_steps_per_epoch
+    from fedml_tpu_torch.data.cifar import load_cifar10
+    from fedml_tpu_torch.experiments.registry import shrink_dataset
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+    ds = shrink_dataset(load_cifar10(num_clients=XD_CLIENTS, partition="hetero",
+                                     partition_alpha=0.5, seed=0), XD_SAMPLES, 64)
+    bundle = resnet56_tpu(conv_variant="kernel", device=device)
+    opt = make_client_optimizer("sgd", 0.001, momentum=0.9, weight_decay=1e-3)
+    lu = make_local_update(bundle, opt, epochs=1, compute_dtype=torch.bfloat16)
+    return dict(ds=ds, bundle=bundle, lu=lu, init=bundle.init(PRNGKey(0)),
+                steps=cohort_steps_per_epoch(ds, XD_BATCH))
+
+
+def _hist_delta(before: dict, name: str) -> tuple:
+    """(count, sum) a telemetry histogram gained since ``before``."""
+    from fedml_tpu_torch.obs.telemetry import get_telemetry
+
+    now = get_telemetry().snapshot()["hists"].get(name, {"count": 0, "sum": 0.0})
+    was = before.get(name, {"count": 0, "sum": 0.0})
+    return now["count"] - was["count"], now["sum"] - was["sum"]
+
+
+def _xd_run(p, device, *, label, card, plan_for=None, client_kw=None, clients_per_round=None,
+            wrap_server=None, wrap_client=None, **server_kw):
+    """One federation of the port's managers over an ``InprocBus``: XD_ROUNDS
+    rounds of XD_CLIENTS clients; returns its server, clients and the
+    numbers [xdevice] prints (round seconds from the server's round log,
+    uploads/s, encode/decode/fold ms per upload, frame bytes, launches)."""
+    from fedml_tpu_torch import faults
+    from fedml_tpu_torch.algorithms.fedavg_cross_device import (FedAvgClientManager,
+                                                                FedAvgServerManager)
+    from fedml_tpu_torch.comm.inproc import InprocBus
+    from fedml_tpu_torch.obs.telemetry import get_telemetry
+
+    bus = InprocBus()
+    frames = {}  # (type, round) -> bytes of the first frame on the bus
+    route = bus.route
+
+    def tap(msg):
+        key = (msg.type, msg.get("round_idx"))
+        if key not in frames and msg.type in ("S2C_SYNC_MODEL", "C2S_SEND_MODEL"):
+            frames[key] = (msg, msg.to_frame())
+        route(msg)
+
+    bus.route = tap
+    server = FedAvgServerManager(
+        bus.register(0), p["init"], num_clients=XD_CLIENTS,
+        clients_per_round=clients_per_round or XD_CLIENTS, comm_rounds=XD_ROUNDS, seed=0,
+        steps_per_epoch=p["steps"], stats_plane=False, **server_kw)
+    if wrap_server:
+        wrap_server(server)
+    clients, enc = [], []
+    for node in range(1, XD_CLIENTS + 1):
+        backend = bus.register(node)
+        plan = plan_for(faults, node) if plan_for else None
+        if plan is not None:
+            backend = faults.ChaosBackend(backend, plan)
+        c = FedAvgClientManager(backend, p["lu"], p["ds"], batch_size=XD_BATCH,
+                                template_variables=p["init"], seed=0, device=device,
+                                **(client_kw(node) if client_kw else {}))
+        encode = c._encode_upload
+
+        def timed(*a, encode=encode):
+            t0 = time.perf_counter()
+            out = encode(*a)
+            enc.append(time.perf_counter() - t0)
+            return out
+
+        c._encode_upload = timed
+        if wrap_client:
+            wrap_client(c)
+        clients.append(c)
+    hists = get_telemetry().snapshot()["hists"]
+    reset_launches()
+    t0 = time.perf_counter()
+    server.start()
+    deadline = time.monotonic() + 300
+    while server.round_idx < XD_ROUNDS and time.monotonic() < deadline:
+        bus.drain()
+        time.sleep(0.005)
+    bus.drain()
+    wall = time.perf_counter() - t0
+    seen = read_launches()
+    if server.round_idx != XD_ROUNDS:
+        fail(f"xdevice {label}: the federation stopped at round {server.round_idx}")
+    closes = [r for r in server.round_log if "participants" in r]
+    rounds_s = [r["t_close_m"] - r["t_open_m"] for r in closes]
+    timed_s = rounds_s[1:]
+    med = sorted(timed_s)[len(timed_s) // 2]
+    n_dec, s_dec = _hist_delta(hists, "span.decode_s")
+    n_fold, s_fold = _hist_delta(hists, "span.agg_fold_s")
+    steps = sum(c.rounds_trained for c in clients) * p["steps"]
+    sync = frames.get(("S2C_SYNC_MODEL", 1))
+    up = frames.get(("C2S_SEND_MODEL", 1))
+    rec = {"round_s": rounds_s, "median_round_s": med,
+           "uploads_per_s": sum(len(r["participants"]) for r in closes[1:]) / sum(timed_s),
+           "encode_ms": 1e3 * sum(enc) / max(len(enc), 1),
+           "decode_ms": 1e3 * s_dec / max(n_dec, 1), "fold_ms": 1e3 * s_fold / max(n_fold, 1),
+           "sync_frame_bytes": len(sync[1]) if sync else 0,
+           "upload_frame_bytes": len(up[1]) if up else 0, "wall_s": wall,
+           "client_steps": steps, "launches": seen["conv3x3_mxu"],
+           "tc_launches": seen["conv3x3_mxu_tc"], "flash": seen["flash_attention_fwd"],
+           "rejected": server.rejected_uploads}
+    per_fwd = rec["launches"] / max(steps, 1)
+    print(f"[xdevice] {label}: {XD_ROUNDS} rounds x {XD_CLIENTS} clients (<= {XD_SAMPLES} "
+          f"samples, batch {XD_BATCH}, bf16) in {wall:.2f} s; round s "
+          f"{[round(x, 4) for x in rounds_s]}, median {med:.4f} s after a warm-up, "
+          f"{rec['uploads_per_s']:.2f} uploads/s; per upload encode {rec['encode_ms']:.1f} ms, "
+          f"decode {rec['decode_ms']:.1f} ms, fold {rec['fold_ms']:.1f} ms; frames: sync "
+          f"{rec['sync_frame_bytes']} B, upload {rec['upload_frame_bytes']} B; conv3x3_mxu "
+          f"{rec['launches']} ({rec['tc_launches']} tensor-core) for {steps} client forwards "
+          f"= {per_fwd:.2f} per forward; flash {rec['flash']} ({card})")
+    if device == "cuda" and (rec["launches"] != 19 * steps
+                             or rec["tc_launches"] != TC_PER_FORWARD * steps):
+        fail(f"xdevice {label}: conv launches {seen}, expected {19 * steps} "
+             f"({TC_PER_FORWARD * steps} tensor-core) for {steps} client forwards")
+    if rec["flash"]:
+        fail(f"xdevice {label}: the ResNet-56 clients launched the flash kernel")
+    from fedml_tpu_torch.compress import jax_leaves
+    from fedml_tpu_torch.core.tree import host_array
+
+    import numpy as np
+
+    if not all(np.isfinite(host_array(l)).all() for _, l in jax_leaves(server.variables)):
+        fail(f"xdevice {label}: non-finite global model")
+    return server, clients, rec, frames
+
+
+def _xd_sim(p, device, variables=None, start: int = 0):
+    """The port's FedAvgSimulation of the same federation (full
+    participation, the same local update and keys) on ``device``, from
+    ``variables`` (the init if None) at round ``start``, to the last round;
+    returns its variables (on the CPU) after every round."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig, FedAvgSimulation
+
+    cfg = FedAvgConfig(num_clients=XD_CLIENTS, clients_per_round=XD_CLIENTS,
+                       comm_rounds=XD_ROUNDS, epochs=1, batch_size=XD_BATCH, lr=0.001,
+                       momentum=0.9, weight_decay=1e-3, frequency_of_the_test=1000, seed=0,
+                       compute_dtype="bf16")
+    sim = FedAvgSimulation(p["bundle"], p["ds"], cfg, local_update=p["lu"], device=device)
+    if variables is not None:
+        sim.state = sim.state._replace(variables={
+            c: {k: torch.as_tensor(np.array(v) if not isinstance(v, torch.Tensor) else v)
+                .to(device) for k, v in sub.items()} for c, sub in variables.items()})
+    sim.state = sim.state._replace(round_idx=start)
+    out = []
+    for _ in range(start, XD_ROUNDS):
+        sim.run_round()
+        out.append({c: {k: v.detach().cpu() for k, v in sub.items()}
+                    for c, sub in sim.state.variables.items()})
+    return out
+
+
+def _snapshots(server):
+    """Record the server's variables after every round close."""
+    snaps = []
+    close = server._close_round
+
+    def recording(*a, **kw):
+        out = close(*a, **kw)
+        snaps.append(server.variables)
+        return out
+
+    server._close_round = recording
+    return snaps
+
+
+def phase_xdevice(device: str = "cuda"):
+    """Cross-device FedAvg of the port over the in-process bus, the
+    managers' public API (``FedAvgServerManager(backend, init, ...)``,
+    ``FedAvgClientManager(backend, local_update, dataset, ...)``), each
+    client's local update on ResNet-56 with every 3x3 conv on the kernel
+    (19 launches per forward, 18 tensor-core per bf16 training forward),
+    the uploads copied to the host and folded in float64 there.
+
+    1. sync, full participation, held against the port's FedAvgSimulation
+       on the card (same init, keys, local update): round 0's aggregate
+       within XD_ROUND0_TOL, the last round (from the federation's previous
+       global) within XD_FINAL_TOL; a planted fault (one client's sample
+       count doubled) beyond both; round 1's sync and upload frames card ==
+       CPU by sha256;
+    2. qsgd8 + EF uploads with the delta broadcast (qsgd8 chain), twice:
+       the upload digests repeat bit for bit;
+    3. async, cut 2 of 4, max staleness 2, poly alpha 0.5, one client with a
+       train delay: stale uploads folded at w(d)·n and counted; the same
+       run at cut 4 and alpha 0 equal to case 1's model bit for bit;
+    4. faults and defense: a ChaosBackend NaN-corrupts one upload, which is
+       rejected and counted; a x10 attacker clipped by the streaming norm
+       bound; under the median close the attacker and the corrupt upload
+       leave a model equal to the host median of the decoded uploads.
+
+    ``device`` "cpu" rehearses the phase without a card (launch counts are
+    0 there)."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg_cross_device import encode_client_upload
+    from fedml_tpu_torch.comm.message import Message, tree_to_wire
+    from fedml_tpu_torch.obs.telemetry import get_telemetry
+    from fedml_tpu_torch.robust import DefenseConfig
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    tel = get_telemetry()
+    launches = tc = 0
+    with deterministic():
+        p = _xd_problem(device)
+
+        # -- 1. sync against the simulation ---------------------------------------------
+        captured = {}
+
+        def capture_round1(client):
+            if client.backend.node_id != 1:
+                return
+            encode = client._encode_upload
+
+            def both(codec, new_vars, synced, round_idx, slot):
+                wire = encode(codec, new_vars, synced, round_idx, slot)
+                if round_idx == 1:
+                    cpu = {c: {k: v.cpu() for k, v in sub.items()} for c, sub in new_vars.items()}
+                    captured["upload_cpu"] = encode_client_upload(
+                        codec, cpu, cpu, cpu, seed=0, round_idx=1, slot=slot)[0]
+                return wire
+
+            client._encode_upload = both
+
+        snaps = []
+        server, _, r1, frames = _xd_run(p, device, label="sync", card=card,
+                                        wrap_server=lambda s: snaps.append(_snapshots(s)),
+                                        wrap_client=capture_round1)
+        fed = snaps[0]
+        # Round 0 from the same init and the last round from the federation's
+        # own previous global: the clients' models are the simulation's bit
+        # for bit and only the folds differ (float64 on the host, fp32 on the
+        # card).  Free-running, bf16 steps carry round 0's one-ulp fold
+        # difference to ~1e-2 of the leaves in three rounds, as far as one
+        # ulp on the global moves one round (the spread printed) and as far
+        # as a doubled sample count moves it: that gap is printed, not gated.
+        # Gaps are max |Δ| / max(1, max |leaf|), as [silo]'s: a BatchNorm
+        # bias starts at 0, where a leaf-relative gap reads bf16's rounding
+        # (printed beside it).
+        free = _xd_sim(p, device)
+        last = XD_ROUNDS - 1
+        round0, leaf0 = _host_gap(fed[0], free[0])
+        rel0 = _host_gap(fed[0], free[0], 1e-30)
+        forced = _xd_sim(p, device, fed[last - 1], last)[-1]
+        final, leaf = _host_gap(fed[last], forced)
+        spread = 0.0
+        for to in (float("inf"), float("-inf")):
+            bumped = {**fed[last - 1], "params": {
+                k: np.nextafter(v, np.float32(to)) for k, v in fed[last - 1]["params"].items()}}
+            spread = max(spread, _host_gap(_xd_sim(p, device, bumped, last)[-1], forced)[0])
+        gate = XD_FINAL_TOL
+        drift, drift_leaf = _host_gap(fed[last], free[last])
+        launches += r1["launches"]
+        tc += r1["tc_launches"]
+
+        # the planted fault: client 2 reports twice its sample count
+        def double_n(client):
+            if client.backend.node_id != 2:
+                return
+            send = client.send_message
+
+            def doubled(msg):
+                if msg.type == "C2S_SEND_MODEL":
+                    msg.add_params("num_samples", 2.0 * msg.get("num_samples"))
+                send(msg)
+
+            client.send_message = doubled
+
+        fault_snaps = []
+        _, _, rf, _ = _xd_run(p, device, label="sync, planted fault (client 2's n doubled)",
+                              card=card, wrap_server=lambda s: fault_snaps.append(_snapshots(s)),
+                              wrap_client=double_n)
+        launches += rf["launches"]
+        tc += rf["tc_launches"]
+        faulted = fault_snaps[0]
+        f0 = _host_gap(faulted[0], free[0])[0]
+        ff = _host_gap(faulted[last], _xd_sim(p, device, faulted[last - 1], last)[-1])[0]
+        # round 1's frames: the sync as sent (host numpy) against the same
+        # model encoded from card tensors; client 1's upload as sent (from
+        # its card tensors) against the CPU copy's
+        sync_msg, sync_frame = frames[("S2C_SYNC_MODEL", 1)]
+        on_card = {c: {k: torch.as_tensor(np.array(v)).to(device) for k, v in sub.items()}
+                   for c, sub in fed[0].items()}
+        sync_card = Message(sync_msg.type, 0, sync_msg.receiver)
+        sync_card.params = {**sync_msg.params, "model_params": tree_to_wire(on_card)}
+        up_msg, up_frame = frames[("C2S_SEND_MODEL", 1)]
+        up_cpu = Message(up_msg.type, up_msg.sender, 0)
+        up_cpu.params = {**up_msg.params, "model_params": captured["upload_cpu"]}
+        sha = {k: hashlib.sha256(b).hexdigest() for k, b in (
+            ("sync", sync_frame), ("sync_card", sync_card.to_frame()),
+            ("upload", up_frame), ("upload_cpu", up_cpu.to_frame()))}
+        frames_ok = sha["sync"] == sha["sync_card"] and sha["upload"] == sha["upload_cpu"]
+        print(f"[xdevice] sync vs FedAvgSimulation on {device} (max |Δ| / max(1, max |leaf|)): "
+              f"round 0 {round0:.3g} ({leaf0}; gate {XD_ROUND0_TOL:g}; per leaf max |Δ| / max "
+              f"|leaf| {rel0[0]:.3g}, {rel0[1]}); round {last} from the federation's round "
+              f"{last - 1} global {final:.3g} ({leaf}; gate {gate:g}; the same round from that "
+              f"global one ulp up and down: spread {spread:.3g}); free-running from the init "
+              f"after {XD_ROUNDS} rounds {drift:.3g} ({drift_leaf}; not gated); planted fault: "
+              f"round 0 {f0:.3g}, round {last} {ff:.3g}; round 1 frames card == cpu by sha256: "
+              f"sync {sha['sync'] == sha['sync_card']}, upload {sha['upload'] == sha['upload_cpu']} "
+              f"({card})")
+        if round0 > XD_ROUND0_TOL or final > gate:
+            fail("xdevice: the federation is not the simulation")
+        if not (f0 > XD_ROUND0_TOL and ff > gate):
+            fail("xdevice: the planted fault (a doubled sample count) passed a gate")
+        if not frames_ok:
+            fail("xdevice: round 1's frames differ between the card and the CPU")
+        rec["sync"] = {**r1, "round0_gap": round0, "round0_leaf_rel": rel0[0],
+                       "final_round_gap": final, "final_round_gate": gate, "final_round_ulp_spread": spread,
+                       "free_running_gap": drift, "fault_round0_gap": f0,
+                       "fault_final_round_gap": ff, "frames_sha256": sha}
+        sync_final = fed[-1]
+
+        # -- 2. qsgd8 + EF uplink, delta broadcast, twice ------------------------------
+        digests = []
+        for run in (1, 2):
+            _, clients, r2, _ = _xd_run(p, device, label=f"qsgd8 + EF, delta bcast, run {run}",
+                                        card=card, codec="qsgd8", bcast="delta")
+            digests.append([c.upload_digest for c in clients])
+            launches += r2["launches"]
+            tc += r2["tc_launches"]
+        print(f"[xdevice] qsgd8 + EF upload digests repeat bit for bit: "
+              f"{digests[0] == digests[1]} ({card})")
+        if digests[0] != digests[1]:
+            fail("xdevice: the qsgd8 + EF uploads did not repeat")
+        rec["qsgd8_ef_delta"] = {**r2, "digests_repeat": True}
+
+        # -- 3. async ----------------------------------------------------------------------
+        stale0 = tel.counter_value("async.stale_weighted_uploads")
+        folded0 = tel.counter_value("async.folded_weight")
+        _, _, r3, _ = _xd_run(p, device, label="async cut 2 of 4, poly 0.5, client 4 delayed",
+                              card=card, round_mode="async", cut_size=2, max_staleness=2,
+                              stale_policy="poly", stale_alpha=0.5,
+                              client_kw=lambda n: {"train_delay": 0.05 if n == 4 else 0.0})
+        stale = tel.counter_value("async.stale_weighted_uploads") - stale0
+        folded = tel.counter_value("async.folded_weight") - folded0
+        launches += r3["launches"]
+        tc += r3["tc_launches"]
+        server4, _, r4, _ = _xd_run(p, device, label="async cut 4, alpha 0", card=card,
+                                    round_mode="async", cut_size=4, stale_alpha=0.0)
+        launches += r4["launches"]
+        tc += r4["tc_launches"]
+        same = _host_gap(server4.variables, sync_final)[0] == 0.0
+        print(f"[xdevice] async: {stale:.0f} stale uploads folded at w(d)·n, folded weight "
+              f"{folded:.1f}; cut 4 alpha 0 == sync bit for bit: {same} ({card})")
+        if not stale > 0:
+            fail("xdevice: the async cut folded no stale upload")
+        if not same:
+            fail("xdevice: async at cut K and alpha 0 is not the sync run")
+        rec["async"] = {**r3, "stale_uploads": stale, "folded_weight": folded}
+        rec["async_cut_k"] = {**r4, "equals_sync": same}
+
+        # -- 4. faults and defense ---------------------------------------------------------
+        def chaos(mod, node):
+            if node == 2:  # the x10 attacker
+                return mod.FaultPlan(0, rules=[mod.FaultRule(
+                    action="scale_grad", node=2, msg_type="C2S_SEND_MODEL",
+                    attack_scale=10.0)])
+            if node == 3:  # one NaN-corrupted upload, round 1
+                return mod.FaultPlan(0, rules=[mod.FaultRule(
+                    action="corrupt", node=3, msg_type="C2S_SEND_MODEL", round=1)])
+            return None
+
+        corrupt0 = tel.counter_value("faults.observed", kind="corrupt_upload",
+                                     msg_type="C2S_SEND_MODEL")
+        clipped0 = tel.counter_value("robust.clipped_uploads")
+        _, _, r5, _ = _xd_run(p, device, label="chaos: x10 attacker + NaN upload, norm clip",
+                              card=card, plan_for=chaos, clients_per_round=3, spares=1,
+                              defense=DefenseConfig(defense="streaming",
+                                                    norm_bound=XD_NORM_BOUND))
+        clipped = tel.counter_value("robust.clipped_uploads") - clipped0
+        launches += r5["launches"]
+        tc += r5["tc_launches"]
+        medians = []
+
+        def keep_median_inputs(server):
+            close = server._close_round
+
+            def recording(*a, **kw):
+                ups = [e["variables"]["params"] for e in server.pending.values()]
+                out = close(*a, **kw)
+                medians.append((ups, server.variables["params"]))
+                return out
+
+            server._close_round = recording
+
+        _, _, r6, _ = _xd_run(p, device, label="chaos: x10 attacker + NaN upload, median close",
+                              card=card, plan_for=chaos, clients_per_round=3, spares=1,
+                              defense=DefenseConfig(defense="median"),
+                              wrap_server=keep_median_inputs)
+        launches += r6["launches"]
+        tc += r6["tc_launches"]
+        corrupt = tel.counter_value("faults.observed", kind="corrupt_upload",
+                                    msg_type="C2S_SEND_MODEL") - corrupt0
+        median_ok = bool(medians) and all(
+            np.array_equal(np.median(np.stack([np.asarray(u[k], np.float32) for u in ups]),
+                                     axis=0).astype(np.asarray(got[k]).dtype),
+                           np.asarray(got[k]))
+            for ups, got in medians for k in got)
+        print(f"[xdevice] faults: NaN uploads rejected {r5['rejected']} + {r6['rejected']} "
+              f"(faults.observed corrupt_upload +{corrupt:.0f}); x10 uploads clipped to "
+              f"norm {XD_NORM_BOUND:g}: {clipped:.0f}; median close == the host median of the "
+              f"decoded uploads in {len(medians)} rounds: {median_ok} ({card})")
+        if not (r5["rejected"] == 1 and r6["rejected"] == 1 and corrupt == 2):
+            fail("xdevice: the NaN upload was not rejected and counted once per run")
+        if clipped < XD_ROUNDS:
+            fail("xdevice: the x10 attacker was not clipped every round")
+        if not median_ok:
+            fail("xdevice: the median close is not the host median of the uploads")
+        rec["faults_clip"] = {**r5, "clipped": clipped, "corrupt_counted": corrupt}
+        rec["faults_median"] = {**r6, "median_equals_host": median_ok}
+    rec["launches"] = launches
+    rec["tc_launches"] = tc
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[xdevice] phase time: {rec['phase_s']:.1f} s; conv3x3_mxu launches {launches} "
+          f"({tc} tensor-core) ({card})")
     return rec
 
 
@@ -3285,6 +3757,7 @@ def main() -> int:
     family_rec = phase_family()
     imagenet_rec = phase_imagenet()
     comm_rec = phase_comm()
+    xdevice_rec = phase_xdevice()
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -3301,7 +3774,7 @@ def main() -> int:
         "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
                      + compress_rec["launches"] + silo_rec["launches"]
                      + algos_rec["launches"] + standalone_rec["launches"]
-                     + imagenet_rec["launches"]),
+                     + imagenet_rec["launches"] + xdevice_rec["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -3346,7 +3819,7 @@ def main() -> int:
                        "algos": algos_rec,
                        "standalone": standalone_rec, "family": family_rec,
                        "cases_224": cases_224, "imagenet": imagenet_rec,
-                       "comm": comm_rec,
+                       "comm": comm_rec, "xdevice": xdevice_rec,
                        "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -193,7 +193,7 @@ def make_round_fn(
                     layout.set_row(residuals, slot,
                                    torch.where(participation[k] > 0, new, old))
             if aggregate_transform is None:
-                num = treelib.tree_fold_weighted(num, cvars, weights[k])
+                num = treelib.tree_fold_weighted_f32(num, cvars, weights[k])
             else:
                 clients.append(cvars)
             for name, v in cm.items():
@@ -205,7 +205,7 @@ def make_round_fn(
             stacked = treelib.tree_map(lambda *leaves: torch.stack(leaves), *clients)
             stacked = aggregate_transform(state.variables, stacked, weights, keys)
             for k in range(len(ids)):
-                num = treelib.tree_fold_weighted(
+                num = treelib.tree_fold_weighted_f32(
                     num, treelib.tree_map(lambda leaf: leaf[k], stacked), weights[k])
         den = weights.sum()
         # zero-participation guard: with den == 0 the weighted average is

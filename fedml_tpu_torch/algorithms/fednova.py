@@ -82,10 +82,10 @@ def make_fednova_round_fn(local_update, *, lr: float, momentum: float,
             c = p[k] / (lr * a)
             delta = treelib.tree_map(lambda g, w: g.float() - w.float(), w0,
                                      cvars["params"])
-            d_sum = treelib.tree_fold_weighted(d_sum, delta, c)
+            d_sum = treelib.tree_fold_weighted_f32(d_sum, delta, c)
             tau_eff = tau_eff + p[k] * a
             for coll in others:
-                others[coll] = treelib.tree_fold_weighted(others[coll], cvars[coll], p[k])
+                others[coll] = treelib.tree_fold_weighted_f32(others[coll], cvars[coll], p[k])
             for name, v in cm.items():
                 w = participation[k] * v
                 train_metrics[name] = train_metrics[name] + w if name in train_metrics else w

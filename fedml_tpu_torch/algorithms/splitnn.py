@@ -15,9 +15,10 @@ a leaf that requires grad, the top's CE loss is backpropagated, the
 leaf's ``.grad`` is the cotangent the reference ships, and
 ``acts.backward(gacts)`` runs it through the bottom.  ``fused_step`` is
 ``bottom_forward`` → ``top_step`` → ``bottom_backward`` in one call, bit
-for bit.  The message-mode managers (two processes over the comm
-backend) are not ported: they wait for the cross-device runtime
-(ROADMAP.md, queue A item 5).
+for bit.  The message-mode managers (``SplitNNServerManager``,
+``SplitNNClientManager``) run the same three pieces across a
+``CommBackend``: activations up, their gradient down, the ring token
+between clients.
 """
 
 from __future__ import annotations
@@ -28,6 +29,16 @@ from typing import Any, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from fedml_tpu_torch.comm.backend import CommBackend, NodeManager
+from fedml_tpu_torch.comm.message import (
+    MSG_TYPE_C2C_SEMAPHORE,
+    MSG_TYPE_C2S_SEND_ACTS,
+    MSG_TYPE_S2C_FINISH,
+    MSG_TYPE_S2C_SEND_GRADS,
+    Message,
+    tree_from_wire,
+    tree_to_wire,
+)
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core.client import Optimizer, make_client_optimizer
 from fedml_tpu_torch.core.losses import softmax_ce_logits
@@ -205,3 +216,149 @@ class SplitNNSimulation:
                                        x[lo:lo + 256], y[lo:lo + 256])
                             for lo in range(0, len(x), 256)])
         return {"acc": m["correct"] / m["count"], "loss": m["loss"] / m["count"]}
+
+
+# --- message-mode managers (two-process deployments over CommBackend) -------
+
+SERVER = 0
+
+
+class SplitNNServerManager(NodeManager):
+    """Holds the top half; answers every C2S_SEND_ACTS with S2C_SEND_GRADS
+    (reference ``server_manager.py:31-36``).  The top is drawn from
+    ``PRNGKey(seed)`` on ``device``."""
+
+    def __init__(self, backend: CommBackend, top: ModelBundle, *,
+                 acts_template, lr: float = 0.1, seed: int = 0,
+                 device: DeviceLike = None):
+        self.device = driver_device(device, top)
+        self.opt = split_optimizer(lr)
+        _, _, self._top_step, _, _ = make_split_steps(_DUMMY_BOTTOM, top, self.opt)
+        self.state = init_half(top, rnglib.PRNGKey(seed), self.opt)
+        self.acts_template = torch.as_tensor(np.asarray(acts_template),
+                                             device=self.device)
+        self.batches_seen = 0
+        super().__init__(backend)
+
+    def register_message_receive_handlers(self):
+        self.register_message_receive_handler(MSG_TYPE_C2S_SEND_ACTS, self._on_acts)
+        self.register_message_receive_handler(MSG_TYPE_S2C_FINISH, self._on_finish)
+
+    def _on_finish(self, msg: Message):
+        self.finish()
+
+    def _on_acts(self, msg: Message):
+        acts = tree_from_wire(msg.get("acts"), self.acts_template)
+        y = torch.from_numpy(np.asarray(msg.get("labels"), dtype=np.int32)).to(self.device)
+        self.state, gacts, metrics = self._top_step(self.state, acts, y)
+        self.batches_seen += 1
+        reply = Message(MSG_TYPE_S2C_SEND_GRADS, SERVER, msg.sender)
+        reply.add_params("grads", tree_to_wire(gacts))
+        reply.add_params("loss", float(metrics["loss"]))
+        self.send_message(reply)
+
+
+class SplitNNClientManager(NodeManager):
+    """Holds a bottom half + its private data; drives its epoch batch by
+    batch, then passes the semaphore to the next ring node (reference
+    ``client_manager.py:29-74``).  The bottom is drawn from
+    ``PRNGKey(seed + node_id)``; batches go in data order."""
+
+    def __init__(self, backend: CommBackend, bottom: ModelBundle, x, y, *,
+                 node_id: int, next_node: int, batch_size: int = 64,
+                 lr: float = 0.1, active: bool = False, seed: int = 0,
+                 total_hops: int = 1, device: DeviceLike = None):
+        self.device = driver_device(device, bottom)
+        self.opt = split_optimizer(lr)
+        _, self._fwd, _, self._bwd, _ = make_split_steps(bottom, _DUMMY_TOP, self.opt)
+        self.state = init_half(bottom, rnglib.PRNGKey(seed + node_id), self.opt)
+        self.x, self.y = x, y
+        self.batch_size = batch_size
+        self.next_node = next_node
+        self.active_at_start = active
+        self.batch_idx = 0
+        # ring budget: each epoch a client runs consumes one hop; the
+        # token retires when its countdown reaches zero (replaces the
+        # reference's MAX_EPOCH_PER_NODE bookkeeping, client.py:16)
+        self.hops_left = total_hops
+        self._acts_template = None
+        self._cur_x = None
+        super().__init__(backend)
+
+    def register_message_receive_handlers(self):
+        self.register_message_receive_handler(MSG_TYPE_S2C_SEND_GRADS, self._on_grads)
+        self.register_message_receive_handler(MSG_TYPE_C2C_SEMAPHORE, self._on_token)
+
+    def start_if_active(self):
+        if self.active_at_start:
+            self._send_next_batch()
+
+    def _on_token(self, msg: Message):
+        self.hops_left = msg.get("hops_left")
+        if self.hops_left <= 0:
+            # retire flood: finish, and keep it circling until it reaches
+            # the node that originated it, so every ring member and the
+            # server get a shutdown, not just the first retiree
+            origin = msg.get("origin")
+            if self.next_node != origin:
+                self._forward_retire(origin)
+            self.finish()
+            return
+        self.batch_idx = 0
+        self._send_next_batch()
+
+    def _forward_retire(self, origin: int):
+        token = Message(MSG_TYPE_C2C_SEMAPHORE, self.backend.node_id, self.next_node)
+        token.add_params("hops_left", 0)
+        token.add_params("origin", origin)
+        self.send_message(token)
+
+    def _send_next_batch(self):
+        lo = self.batch_idx * self.batch_size
+        if lo + self.batch_size > len(self.x):
+            hops = self.hops_left - 1
+            if hops <= 0:
+                # token budget spent: tell the server, start the retire
+                # flood around the ring, then finish ourselves
+                self.send_message(
+                    Message(MSG_TYPE_S2C_FINISH, self.backend.node_id, SERVER))
+                if self.next_node != self.backend.node_id:
+                    self._forward_retire(self.backend.node_id)
+                self.finish()
+                return
+            # epoch done: pass the ring token (client_manager.py:72-74)
+            token = Message(MSG_TYPE_C2C_SEMAPHORE, self.backend.node_id,
+                            self.next_node)
+            token.add_params("hops_left", hops)
+            self.send_message(token)
+            return
+        sl = slice(lo, lo + self.batch_size)
+        self._cur_x = torch.from_numpy(np.asarray(self.x[sl])).to(self.device)
+        acts = self._fwd(self.state, self._cur_x)
+        self._acts_template = acts
+        m = Message(MSG_TYPE_C2S_SEND_ACTS, self.backend.node_id, SERVER)
+        m.add_params("acts", tree_to_wire(acts))
+        m.add_params("labels", np.asarray(self.y[sl]).tolist())
+        self.send_message(m)
+
+    def _on_grads(self, msg: Message):
+        gacts = tree_from_wire(msg.get("grads"), self._acts_template)
+        self.state = self._bwd(self.state, self._cur_x, gacts)
+        self.batch_idx += 1
+        self._send_next_batch()
+
+
+class _Identity:
+    """Placeholder half for managers that only own one side."""
+
+    @staticmethod
+    def apply_train(variables, x, rng=None):
+        return x, variables
+
+    @staticmethod
+    def apply_eval(variables, x):
+        return x
+
+
+_DUMMY_BOTTOM = _Identity()
+_DUMMY_TOP = _Identity()

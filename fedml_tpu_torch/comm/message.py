@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from fedml_tpu_torch.compress.codecs import jax_leaves, unflatten_like
+from fedml_tpu_torch.core.tree import host_array
 
 # --- reserved wire-format keys ---------------------------------------------
 # Protocol vocabulary, defined ONCE (the fedlint wire-schema rule bans
@@ -531,14 +532,7 @@ def _tree_map(fn, tree, *rest, is_leaf=None):
 def tensor_to_list(tree: Any) -> Any:
     """The reference's mobile/MQTT codec (``fedavg/utils.py:11-14``):
     arrays become nested python lists (bfloat16 as the floats it holds)."""
-    return _tree_map(lambda a: _to_host_values(a).tolist(), tree)
-
-
-def _to_host_values(a) -> np.ndarray:
-    if isinstance(a, torch.Tensor):
-        t = a.detach().cpu()
-        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
-    return np.asarray(a)
+    return _tree_map(lambda a: host_array(a).tolist(), tree)
 
 
 def list_to_tensor(tree: Any, like: Any = None) -> Any:

@@ -4,7 +4,9 @@
 ``codecs.py`` holds the codec registry (qsgd8/qsgd4/topk/bf16), the
 per-leaf and wire forms and the fused flat form the round engine runs
 (``make_round_fn(codec=..., error_feedback=...)``); ``error_feedback.py``
-the host-side EF recurrence.  The sharded wire forms of
+the host-side EF recurrence, which the cross-device client's uploads
+(``algorithms/fedavg_cross_device.py::encode_client_upload``) carry per
+uplink stream.  The sharded wire forms of
 ``fedml_tpu/compress/sharded.py`` belong to the parallel engines and are
 not ported yet (ROADMAP queue A item 6).
 """

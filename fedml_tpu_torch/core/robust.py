@@ -15,14 +15,18 @@ leaf in ``jax.tree_util`` leaf order (sorted flax paths,
 ``compress.jax_leaves``), so the noise is the JAX package's, bit for bit,
 on every device.
 
-The numpy form the cross-device server screens uploads with
-(``fedml_tpu/robust/defense.py``) is ported with that server.
+The host half: the cross-device server screens each upload on the host
+(``robust/defense.py``), and there the JAX package runs these formulas
+with ``xp=np``.  Passing ``xp=np`` here runs that numpy form, the JAX
+package's numpy calls in its order (float32 norms, ``einsum`` scaling,
+``np.median``), so the screened uploads are its bits.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.compress.codecs import jax_leaves, unflatten_like
@@ -38,30 +42,55 @@ AGG_STREAM = 1
 _NORM_EPS = 1e-12
 
 
-def param_delta_sq_norms(global_params: Tree, stacked_params: Tree) -> torch.Tensor:
+def _np_leaf_sum(tree: Tree):
+    """Python ``sum`` of a tree's leaves in JAX's leaf order (what
+    ``sum(jax.tree_util.tree_leaves(...))`` computes)."""
+    return sum(leaf for _, leaf in jax_leaves(tree))
+
+
+def param_delta_sq_norms(global_params: Tree, stacked_params: Tree, *,
+                         xp=torch):
     """[K] squared L2 norm of (w_i − w_global) over the parameters, the
-    leaves summed in JAX's leaf order."""
+    leaves summed in JAX's leaf order; ``xp=np`` for numpy trees."""
+    if xp is np:
+        return _np_leaf_sum(treelib.tree_map(
+            lambda g, s: np.sum(
+                np.square(s.astype(np.float32) - g[None].astype(np.float32)),
+                axis=tuple(range(1, s.ndim))),
+            global_params, stacked_params))
     sq = treelib.tree_map(
         lambda g, s: (s.float() - g[None].float()).square().sum(
             dim=tuple(range(1, s.ndim))),
         global_params, stacked_params)
-    return sum(leaf for _, leaf in jax_leaves(sq))
+    return _np_leaf_sum(sq)
 
 
-def param_delta_norms(global_params: Tree, stacked_params: Tree) -> torch.Tensor:
+def param_delta_norms(global_params: Tree, stacked_params: Tree, *, xp=torch):
+    if xp is np:
+        return np.sqrt(param_delta_sq_norms(global_params, stacked_params, xp=np))
     return torch.sqrt(param_delta_sq_norms(global_params, stacked_params))
 
 
-def clip_factor(norms: torch.Tensor, norm_bound: float) -> torch.Tensor:
+def clip_factor(norms, norm_bound: float, *, xp=torch):
     """Per-client clip scale ``min(1, bound / max(norm, eps))``."""
+    if xp is np:
+        return np.minimum(1.0, norm_bound / np.maximum(norms, _NORM_EPS))
     return torch.clamp_max(norm_bound / torch.clamp_min(norms, _NORM_EPS), 1.0)
 
 
 def clip_stacked_params(global_params: Tree, stacked_params: Tree,
-                        norm_bound: float) -> Tree:
+                        norm_bound: float, *, xp=torch) -> Tree:
     """Norm-difference clipping over a stacked [K, ...] params tree:
     ``w_t + scale_k · (w_k − w_t)``."""
-    scale = clip_factor(param_delta_norms(global_params, stacked_params), norm_bound)
+    scale = clip_factor(param_delta_norms(global_params, stacked_params, xp=xp),
+                        norm_bound, xp=xp)
+    if xp is np:
+        return treelib.tree_map(
+            lambda g, s: (g[None].astype(np.float32) + np.einsum(
+                "k,k...->k...", scale,
+                s.astype(np.float32) - g[None].astype(np.float32))
+            ).astype(s.dtype),
+            global_params, stacked_params)
 
     def clip(g, s):
         g32 = g[None].float()
@@ -106,10 +135,15 @@ def add_weak_dp_noise(stacked_client_vars: Tree, rngs, stddev: float) -> Tree:
     return {**stacked_client_vars, "params": noised}
 
 
-def coordinate_median(stacked_params: Tree) -> Tree:
+def coordinate_median(stacked_params: Tree, *, xp=torch) -> Tree:
     """Coordinate-wise median over the client axis, [K, ...] → [...]: for
     an even K the mean of the two middle values, ``(lo + hi) · 0.5``, as
-    ``jnp.median`` computes it (``torch.median`` returns the lower one)."""
+    ``jnp.median`` computes it (``torch.median`` returns the lower one);
+    ``xp=np`` runs ``np.median``."""
+    if xp is np:
+        return treelib.tree_map(
+            lambda s: np.median(s.astype(np.float32), axis=0).astype(s.dtype),
+            stacked_params)
 
     def one(s):
         srt = torch.sort(s.float(), dim=0).values
@@ -120,12 +154,19 @@ def coordinate_median(stacked_params: Tree) -> Tree:
     return treelib.tree_map(one, stacked_params)
 
 
-def trimmed_mean(stacked_params: Tree, trim_frac: float) -> Tree:
+def trimmed_mean(stacked_params: Tree, trim_frac: float, *, xp=torch) -> Tree:
     """Coordinate-wise trimmed mean: sort each coordinate across the K
     clients, drop ``floor(trim_frac · K)`` from each end, average the
     rest."""
     if not 0.0 <= trim_frac < 0.5:
         raise ValueError(f"trim_frac must be in [0, 0.5): {trim_frac!r}")
+
+    def one_np(s):
+        k = s.shape[0]
+        cut = int(trim_frac * k)
+        srt = np.sort(s.astype(np.float32), axis=0)
+        kept = srt[cut:k - cut] if cut else srt
+        return np.mean(kept, axis=0).astype(s.dtype)
 
     def one(s):
         k = s.shape[0]
@@ -134,15 +175,15 @@ def trimmed_mean(stacked_params: Tree, trim_frac: float) -> Tree:
         kept = srt[cut:k - cut] if cut else srt
         return (kept.sum(0) / kept.shape[0]).to(s.dtype)
 
-    return treelib.tree_map(one, stacked_params)
+    return treelib.tree_map(one_np if xp is np else one, stacked_params)
 
 
 def robust_center(defense_type: str, stacked_params: Tree, *,
-                  trim_frac: float = 0.2) -> Tree:
+                  trim_frac: float = 0.2, xp=torch) -> Tree:
     if defense_type == "median":
-        return coordinate_median(stacked_params)
+        return coordinate_median(stacked_params, xp=xp)
     if defense_type == "trimmed_mean":
-        return trimmed_mean(stacked_params, trim_frac)
+        return trimmed_mean(stacked_params, trim_frac, xp=xp)
     raise ValueError(f"unknown buffered defense {defense_type!r} "
                      "(expected 'median' or 'trimmed_mean')")
 

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
+import numpy as np
 import torch
 
 Tree = Any  # a Tensor, or a dict of Trees
@@ -76,13 +77,84 @@ def tree_cast_like(tree: Tree, ref: Tree) -> Tree:
     return tree_map(lambda x, r: x.to(r.dtype), tree, ref)
 
 
-def tree_fold_weighted(acc: Optional[Tree], tree: Tree, w) -> Tree:
-    """One step of an fp32 weighted sum: ``acc + w * tree`` leaf-wise
-    (``acc=None`` starts a new sum).  FedAvg's aggregation folds each
-    client in as it finishes, so K client models are never held at once."""
+def tree_fold_weighted_f32(acc: Optional[Tree], tree: Tree, w) -> Tree:
+    """One step of an fp32 weighted sum on the tensors' device:
+    ``acc + w * tree`` leaf-wise (``acc=None`` starts a new sum).  The
+    simulation engine's aggregation folds each client in as it finishes,
+    so K client models are never held at once.  (The cross-device
+    server's fold is the float64 host pair below.)"""
     if acc is None:
         return tree_map(lambda x: w * x.float(), tree)
     return tree_map(lambda a, x: a + w * x.float(), acc, tree)
+
+
+def host_array(x) -> np.ndarray:
+    """A leaf as a host numpy array; a bfloat16 tensor as float32 (exact)."""
+    if isinstance(x, torch.Tensor):
+        t = x.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return np.asarray(x)
+
+
+def cast_host_like(x: np.ndarray, like):
+    """``x`` cast to the dtype of the template leaf ``like``: numpy for a
+    numpy template, a tensor on its device for a tensor template."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(
+            device=like.device, dtype=like.dtype)
+    return x.astype(np.asarray(like).dtype)
+
+
+def tree_fold_weighted(acc: Optional[Tree], tree: Tree, w) -> Tree:
+    """One step of a streaming weighted sum, ``acc + w * tree`` per leaf,
+    accumulated on the host in numpy float64 (``acc=None`` starts a new
+    accumulator), as ``fedml_tpu/core/tree.py`` folds it.  This is the
+    cross-device server's O(model)-memory aggregation: uploads fold in as
+    they arrive instead of being buffered until the round closes.  Numpy
+    on purpose: the fold runs under the server's round lock, and a host
+    memcpy-bound add must not pay a device dispatch."""
+    w64 = np.float64(w)
+    if acc is None:
+        return tree_map(lambda x: w64 * np.asarray(host_array(x), np.float64), tree)
+    return tree_map(lambda a, x: a + w64 * np.asarray(host_array(x), np.float64),
+                    acc, tree)
+
+
+def tree_finalize_weighted_mean(acc: Tree, total, like: Tree) -> Tree:
+    """Close a ``tree_fold_weighted`` accumulator: ``acc / total`` in
+    float64, cast back to each leaf dtype of ``like`` (the model
+    template)."""
+    t64 = np.float64(total)
+    return tree_map(lambda a, l: cast_host_like(a / t64, l), acc, like)
+
+
+def tree_weighted_mean(trees, weights) -> Tree:
+    """Buffered form of the streaming pair above: fold every tree with its
+    raw weight, then normalize by ``sum(weights)`` — the same ops in the
+    same order, so a streaming server is bit-identical to this."""
+    acc = None
+    for t, w in zip(trees, weights):
+        acc = tree_fold_weighted(acc, t, w)
+    return tree_finalize_weighted_mean(acc, sum(float(w) for w in weights),
+                                       trees[0])
+
+
+def tree_vdot(a: Tree, b: Tree) -> torch.Tensor:
+    """``sum_leaves <a, b>`` in fp32, the leaves summed in JAX's leaf
+    order (``compress.codecs.jax_leaves``)."""
+    from fedml_tpu_torch.compress.codecs import jax_leaves
+
+    dots = tree_map(lambda x, y: torch.dot(x.float().reshape(-1),
+                                           y.float().reshape(-1)), a, b)
+    total = None
+    for _, d in jax_leaves(dots):
+        total = d if total is None else total + d
+    return total
+
+
+def tree_cast(tree: Tree, dtype: torch.dtype) -> Tree:
+    """Cast every leaf to ``dtype``."""
+    return tree_map(lambda x: x.to(dtype), tree)
 
 
 def tree_detach(tree: Tree) -> Tree:

@@ -179,6 +179,11 @@ class Telemetry:
                 "hists": {k: h.snapshot() for k, h in self.hists.items()},
             }
 
+    def counter_value(self, name: str, **labels) -> float:
+        """One counter's current value (0.0 when it was never bumped)."""
+        with self._lock:
+            return self.counters.get(metric_key(name, labels), 0.0)
+
     def reset(self) -> None:
         with self._lock:
             self.counters.clear()

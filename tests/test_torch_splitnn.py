@@ -207,3 +207,48 @@ def test_run_main_splitnn_matches_jax(tmp_path):
     got = run.main([*argv, "--device", "cpu", "--run_dir", str(tmp_path / "port")])["history"]
     assert len(got) == 6 and all(np.isfinite(r["val_loss"]) for r in got)
     _assert_rows_close(got, want)
+
+
+def _message_mode(split_mod, bus_mod, bottom, top, x, y, acts_template, **kw):
+    """One client's two ring epochs against the server over a bus; the
+    client's bottom from ``PRNGKey(41 + 1)``, the top from ``PRNGKey(0)``."""
+    bus = bus_mod.InprocBus()
+    server = split_mod.SplitNNServerManager(bus.register(0), top, acts_template=acts_template,
+                                            lr=0.1, seed=0, **kw)
+    client = split_mod.SplitNNClientManager(
+        bus.register(1), bottom, x, y, node_id=1, next_node=1, batch_size=16, lr=0.1,
+        active=True, seed=41, total_hops=2, **kw)
+    client.start_if_active()
+    bus.drain()
+    assert server.batches_seen == 6  # 3 batches x 2 epochs
+    return client, server
+
+
+def test_message_mode_equals_fused_ring_and_jax():
+    """The port's message-mode managers over its ``InprocBus`` against its
+    fused step on the same batches (tolerance: none), and against JAX's
+    message mode on the same data (the ring's tolerance, 1e-5)."""
+    from fedml_tpu.comm import inproc as jinproc
+    from fedml_tpu_torch.comm import inproc
+
+    x, y = _data(48, seed=6)
+    tb, tt = cnn_split_pair(CLASSES, SHAPE, device="cpu")
+    opt = splitnn.split_optimizer(0.1)
+    fused, bottom_forward, *_ = splitnn.make_split_steps(tb, tt, opt)
+    b = splitnn.init_half(tb, rng.PRNGKey(42), opt)
+    t = splitnn.init_half(tt, rng.PRNGKey(0), opt)
+    acts = bottom_forward(b, torch.from_numpy(x[:16]))
+    client, server = _message_mode(splitnn, inproc, tb, tt, x, y, torch.zeros_like(acts),
+                                   device="cpu")
+    for _ in range(2):
+        for lo in range(0, 48, 16):
+            b, t, _m = fused(b, t, torch.from_numpy(x[lo:lo + 16]),
+                             torch.from_numpy(y[lo:lo + 16]))
+    for mine, ref in ((client.state, b), (server.state, t)):
+        for k, v in ref.params.items():
+            assert torch.equal(mine.params[k], v), k
+    jb, jt = jpair(CLASSES, SHAPE)
+    jclient, jserver = _message_mode(jsplit, jinproc, jb, jt, x, y,
+                                     jnp.zeros(tuple(acts.shape), jnp.float32))
+    _assert_params_close(client.state.params, jclient.state.params)
+    _assert_params_close(server.state.params, jserver.state.params)
