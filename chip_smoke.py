@@ -230,6 +230,22 @@ Phases, in order; any failure exits non-zero:
              Per case the median round, uploads/s, encode/decode/fold ms per
              upload, frame bytes and conv launches per client forward (19,
              18 tensor-core), no flash launch.
+20. tcp    — the TCP transport: [xdevice]'s sync federation over the port's
+             TcpHub on loopback (server, hub and clients in one process, a
+             TcpBackend each), reactor hub with the tcp lane, reactor with
+             the shm lane, threaded with the tcp lane, each held against the
+             same federation over the InprocBus: round 0's aggregate within
+             1e-6, every round-0 upload frame equal by sha256, a planted
+             fault (a doubled sample count) beyond the gate, 19 conv
+             launches per client forward (18 tensor-core); per run the round
+             seconds, uploads/s, encode/decode/fold ms per upload, frames and
+             bytes routed and the hub's counters (shm frames, fallbacks)
+             beside the in-process figures; a card tensor refused by the
+             backend.  Then ``distributed_fedavg.launch()`` as processes on
+             the card (hub, server, 3 clients, shm lane, 2 rounds of its LR
+             problem; beside it 2 muxers behind 2 edge hubs), each within 1e-5
+             of FedAvgSimulation on the card, the tree byte for byte the
+             flat run; each launch's wall time and hub counters.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -336,7 +352,7 @@ ZOO = [
 ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 10, 2, 512
 # [compress]: the codec stage's share of a 4 x 8 x 64 round, the plain and
 # int8 + EF rounds timed in turns (plain, int8, int8, plain) this many times
-COMPRESS_TURNS = 2
+COMPRESS_TURNS = 1
 
 # [silo]: FedML's cross-silo benchmark rows (BASELINE.md, "Cross-silo DNNs":
 # FedAvg, LDA alpha 0.5, SGD lr 1e-3, wd 1e-3, batch 64) through
@@ -415,8 +431,10 @@ IMAGENET_SIDE = 224  # the loaders' image_size
 # [algos]: the FedAvg-engine family through experiments/run.py's main on
 # full-width ResNet-56 (every 3x3 conv on the kernel, bf16 compute) over the
 # CIFAR-10 stand-in: 4 clients of 128 samples (an equal split: 2 full steps
-# of 64 each per round), 2 rounds, 256 test samples, SGD lr 0.01, no decay
-ALGO_CLIENTS, ALGO_SAMPLES, ALGO_BATCH, ALGO_ROUNDS, ALGO_TEST = 4, 128, 64, 2, 256
+# of 64 each per round), 1 round (cut from 2 to make room for [tcp]: the
+# identities below are held after round 1), 256 test samples, SGD lr 0.01,
+# no decay
+ALGO_CLIENTS, ALGO_SAMPLES, ALGO_BATCH, ALGO_ROUNDS, ALGO_TEST = 4, 128, 64, 1, 256
 ALGO_COMMON = [
     "--dataset", "cifar10", "--model", "resnet56", "--conv_variant", "kernel",
     "--client_num_in_total", str(ALGO_CLIENTS), "--client_num_per_round",
@@ -456,11 +474,14 @@ ALGO_IDENTITIES = [("fedprox_mu0", "fedavg", ALGO_ROUNDS, 0.0),
                    ("fednova_m0", "fedavg", 1, 1e-5)]
 # [standalone]: the drivers beside the FedAvg engine through experiments/run.py's
 # main at [algos]' cut (ALGO_COMMON: the kernel ResNet-56, bf16, 4 clients of
-# 128 CIFAR-10 stand-in samples, batch 64, 2 rounds, 256 test samples, seed 0);
-# fedgkt runs its own pair (resnet8_56 clients, resnet56_server) in fp32 on
-# library convs, so it drops --conv_variant/--compute_dtype
+# 128 CIFAR-10 stand-in samples, batch 64, ALGO_ROUNDS rounds, 256 test
+# samples, seed 0); fedgkt runs its own pair (resnet8_56 clients,
+# resnet56_server) in fp32 on library convs, so it drops
+# --conv_variant/--compute_dtype, and FEDGKT_ROUNDS rounds: its distillation
+# starts in round 1
 # centralized trains on the whole 5,000-image stand-in: one epoch
 CENTRAL_EPOCHS = 1
+FEDGKT_ROUNDS = 2
 STANDALONE_CASES = [
     ("centralized", ["--algorithm", "centralized", *ALGO_COMMON, "--comm_round",
                      str(CENTRAL_EPOCHS)]),
@@ -468,8 +489,8 @@ STANDALONE_CASES = [
     ("turboaggregate", ["--algorithm", "turboaggregate", *ALGO_COMMON]),
     ("fedgkt", ["--algorithm", "fedgkt", "--epochs_server", "1",
                 *[a for flag, value in zip(ALGO_COMMON[::2], ALGO_COMMON[1::2])
-                  if flag not in ("--conv_variant", "--compute_dtype")
-                  for a in (flag, value)]]),
+                  if flag not in ("--conv_variant", "--compute_dtype", "--comm_round")
+                  for a in (flag, value)], "--comm_round", str(FEDGKT_ROUNDS)]),
 ]
 # the card's fp32 round against the CPU's float64 one: max |Δ| of every leaf,
 # relative to the leaf's largest magnitude
@@ -2497,7 +2518,7 @@ def phase_algos(device: str = "cuda"):
             algo = argv[1]
             group_rounds = 2 if algo == "hierarchical" else 1
             train_fwd = ALGO_ROUNDS * group_rounds * ALGO_CLIENTS * steps
-            evals = ALGO_ROUNDS  # rounds 0 and 1: the first, and the last
+            evals = ALGO_ROUNDS  # one per round: the first and the last (freq 5)
             fwd = train_fwd + evals * (eval_fwd + (backdoor_fwd if algo == "fedavg_robust"
                                                    else 0))
             reset_launches()
@@ -3266,6 +3287,9 @@ def phase_family(device: str = "cuda", controls: bool = False):
 XD_CLIENTS, XD_BATCH, XD_SAMPLES, XD_ROUNDS = 4, 64, 128, 3
 XD_ROUND0_TOL, XD_FINAL_TOL = 1e-6, 1e-5
 XD_NORM_BOUND = 1.0  # the streaming defense's clip, far below a x10 upload
+# the qsgd8 + EF runs: round 0 sends the full model, round 1 the delta chain
+# (cut from 3 to make room for [tcp]; the digests still repeat)
+XD_QSGD8_ROUNDS = 2
 
 
 def _host_gap(got: dict, want: dict, floor: float = 1.0) -> tuple:
@@ -3316,8 +3340,8 @@ def _hist_delta(before: dict, name: str) -> tuple:
 
 
 def _xd_run(p, device, *, label, card, plan_for=None, client_kw=None, clients_per_round=None,
-            wrap_server=None, wrap_client=None, **server_kw):
-    """One federation of the port's managers over an ``InprocBus``: XD_ROUNDS
+            wrap_server=None, wrap_client=None, rounds=XD_ROUNDS, **server_kw):
+    """One federation of the port's managers over an ``InprocBus``: ``rounds``
     rounds of XD_CLIENTS clients; returns its server, clients and the
     numbers [xdevice] prints (round seconds from the server's round log,
     uploads/s, encode/decode/fold ms per upload, frame bytes, launches)."""
@@ -3340,7 +3364,7 @@ def _xd_run(p, device, *, label, card, plan_for=None, client_kw=None, clients_pe
     bus.route = tap
     server = FedAvgServerManager(
         bus.register(0), p["init"], num_clients=XD_CLIENTS,
-        clients_per_round=clients_per_round or XD_CLIENTS, comm_rounds=XD_ROUNDS, seed=0,
+        clients_per_round=clients_per_round or XD_CLIENTS, comm_rounds=rounds, seed=0,
         steps_per_epoch=p["steps"], stats_plane=False, **server_kw)
     if wrap_server:
         wrap_server(server)
@@ -3370,13 +3394,13 @@ def _xd_run(p, device, *, label, card, plan_for=None, client_kw=None, clients_pe
     t0 = time.perf_counter()
     server.start()
     deadline = time.monotonic() + 300
-    while server.round_idx < XD_ROUNDS and time.monotonic() < deadline:
+    while server.round_idx < rounds and time.monotonic() < deadline:
         bus.drain()
         time.sleep(0.005)
     bus.drain()
     wall = time.perf_counter() - t0
     seen = read_launches()
-    if server.round_idx != XD_ROUNDS:
+    if server.round_idx != rounds:
         fail(f"xdevice {label}: the federation stopped at round {server.round_idx}")
     closes = [r for r in server.round_log if "participants" in r]
     rounds_s = [r["t_close_m"] - r["t_open_m"] for r in closes]
@@ -3397,7 +3421,7 @@ def _xd_run(p, device, *, label, card, plan_for=None, client_kw=None, clients_pe
            "tc_launches": seen["conv3x3_mxu_tc"], "flash": seen["flash_attention_fwd"],
            "rejected": server.rejected_uploads}
     per_fwd = rec["launches"] / max(steps, 1)
-    print(f"[xdevice] {label}: {XD_ROUNDS} rounds x {XD_CLIENTS} clients (<= {XD_SAMPLES} "
+    print(f"[xdevice] {label}: {rounds} rounds x {XD_CLIENTS} clients (<= {XD_SAMPLES} "
           f"samples, batch {XD_BATCH}, bf16) in {wall:.2f} s; round s "
           f"{[round(x, 4) for x in rounds_s]}, median {med:.4f} s after a warm-up, "
           f"{rec['uploads_per_s']:.2f} uploads/s; per upload encode {rec['encode_ms']:.1f} ms, "
@@ -3477,7 +3501,8 @@ def phase_xdevice(device: str = "cuda"):
        global) within XD_FINAL_TOL; a planted fault (one client's sample
        count doubled) beyond both; round 1's sync and upload frames card ==
        CPU by sha256;
-    2. qsgd8 + EF uploads with the delta broadcast (qsgd8 chain), twice:
+    2. qsgd8 + EF uploads with the delta broadcast (qsgd8 chain), twice, 2
+       rounds each:
        the upload digests repeat bit for bit;
     3. async, cut 2 of 4, max staleness 2, poly alpha 0.5, one client with a
        train delay: stale uploads folded at w(d)·n and counted; the same
@@ -3618,7 +3643,8 @@ def phase_xdevice(device: str = "cuda"):
         digests = []
         for run in (1, 2):
             _, clients, r2, _ = _xd_run(p, device, label=f"qsgd8 + EF, delta bcast, run {run}",
-                                        card=card, codec="qsgd8", bcast="delta")
+                                        card=card, codec="qsgd8", bcast="delta",
+                                        rounds=XD_QSGD8_ROUNDS)
             digests.append([c.upload_digest for c in clients])
             launches += r2["launches"]
             tc += r2["tc_launches"]
@@ -3720,6 +3746,379 @@ def phase_xdevice(device: str = "cuda"):
     return rec
 
 
+
+# [tcp]: [xdevice]'s sync federation (``_xd_problem``: the kernel ResNet-56,
+# bf16, 4 clients x 2 steps of 64, XD_ROUNDS rounds) over the port's TcpHub on
+# loopback, server, hub and clients in one process, each client with its own
+# TcpBackend: reactor hub with the tcp lane, reactor hub with the shm lane,
+# threaded hub with the tcp lane, beside the same federation over the
+# InprocBus.  Each client trains on its backend's reader thread, and their
+# local updates take turns on the card, as over the in-process bus: four
+# client threads launching eager steps at once contend for the interpreter
+# lock (rounds 1.9-2.4x the in-process one on the card, PERF.md §6).  Then
+# distributed_fedavg's launch() as real processes on the card, flat and tree
+# side by side.
+TCP_MODES = [("reactor", "tcp"), ("reactor", "shm"), ("threaded", "tcp")]
+TCP_SHM_MIB = 16  # each connection's slab: a few 2.42 MB frames in flight
+TCP_LAUNCH = dict(num_clients=3, rounds=2, seed=0, batch_size=16, lane="shm",
+                  shm_mib=1, shm_min_bytes=0)  # every LR payload rides the lane
+
+
+def _upload_frames(sink: dict):
+    """A wrap_client hook: the sha256 of each client's round-0 upload frame,
+    as its backend is handed it."""
+    import hashlib
+
+    def wrap(client):
+        send = client.send_message
+
+        def recording(msg):
+            if msg.type == "C2S_SEND_MODEL" and msg.get("round_idx") == 0:
+                sink[client.backend.node_id] = hashlib.sha256(msg.to_frame()).hexdigest()
+            send(msg)
+
+        client.send_message = recording
+
+    return wrap
+
+
+def _wire_totals(before: dict) -> dict:
+    """Frames and bytes the process's backends received since ``before``
+    (every frame the hub routed, counted where it landed) and sent."""
+    from fedml_tpu_torch.obs.telemetry import get_telemetry
+
+    now = get_telemetry().snapshot()["counters"]
+
+    def total(prefix):
+        return sum(v - before.get(k, 0.0) for k, v in now.items() if k.startswith(prefix))
+
+    return {"routed_frames": total("comm.recv_msgs"), "routed_bytes": total("comm.recv_bytes"),
+            "sent_frames": total("comm.sent_msgs"), "sent_bytes": total("comm.sent_bytes")}
+
+
+def _tcp_run(p, device, *, label, card, hub_mode, lane, rounds=XD_ROUNDS, wrap_client=None):
+    """One federation of the port's managers over the port's TcpHub: rounds
+    of XD_CLIENTS clients; returns its server, round snapshots and the
+    numbers [tcp] prints beside [xdevice]'s."""
+    import threading
+
+    import numpy as np
+
+    from fedml_tpu_torch.algorithms.fedavg_cross_device import (FedAvgClientManager,
+                                                                FedAvgServerManager)
+    from fedml_tpu_torch.comm.tcp import TcpBackend, TcpHub
+    from fedml_tpu_torch.compress import jax_leaves
+    from fedml_tpu_torch.core.tree import host_array
+    from fedml_tpu_torch.obs.telemetry import get_telemetry
+
+    kw = {"lane": lane, "shm_data_bytes": TCP_SHM_MIB << 20}
+    if lane == "shm":
+        # each connection's slab holds two rings of TCP_SHM_MIB; a slab
+        # tmpfs cannot back would fault on its first touch, so say so first
+        st = os.statvfs("/dev/shm")
+        need = 2 * (XD_CLIENTS + 1) * (TCP_SHM_MIB << 20)
+        if st.f_bavail * st.f_frsize < need:
+            fail(f"tcp {label}: /dev/shm has {st.f_bavail * st.f_frsize} B free, "
+                 f"the lanes need {need}")
+    hub = TcpHub(mode=hub_mode)
+    backends, threads, clients, enc = [], [], [], []
+    turn = threading.Lock()
+    try:
+        for node in range(1, XD_CLIENTS + 1):
+            cb = TcpBackend(node, hub.host, hub.port, **kw)
+            backends.append(cb)
+            c = FedAvgClientManager(cb, p["lu"], p["ds"], batch_size=XD_BATCH,
+                                    template_variables=p["init"], seed=0, device=device)
+            update = c.local_update
+
+            def in_turn(*a, update=update):
+                with turn:
+                    return update(*a)
+
+            c.local_update = in_turn
+            encode = c._encode_upload
+
+            def timed(*a, encode=encode):
+                t0 = time.perf_counter()
+                out = encode(*a)
+                enc.append(time.perf_counter() - t0)
+                return out
+
+            c._encode_upload = timed
+            if wrap_client:
+                wrap_client(c)
+            clients.append(c)
+            threads.append(cb.run_in_thread())
+        sb = TcpBackend(0, hub.host, hub.port, **kw)
+        backends.append(sb)
+        server = FedAvgServerManager(sb, p["init"], num_clients=XD_CLIENTS,
+                                     clients_per_round=XD_CLIENTS, comm_rounds=rounds, seed=0,
+                                     steps_per_epoch=p["steps"], stats_plane=False)
+        snaps = _snapshots(server)
+        sb.await_peers(range(1, XD_CLIENTS + 1), timeout=60)
+        tel = get_telemetry().snapshot()
+        reset_launches()
+        t0 = time.perf_counter()
+        st = sb.run_in_thread()
+        server.start()
+        st.join(timeout=300)
+        wall = time.perf_counter() - t0
+        seen = read_launches()
+        for t in threads:
+            t.join(timeout=30)
+        if st.is_alive() or server.round_idx != rounds:
+            fail(f"tcp {label}: the federation stopped at round {server.round_idx}")
+        hub_stats = hub.stats()
+    finally:
+        for b in backends:
+            b.stop()
+        hub.stop()
+    closes = [r for r in server.round_log if "participants" in r]
+    rounds_s = [r["t_close_m"] - r["t_open_m"] for r in closes]
+    timed_s = rounds_s[1:] or rounds_s
+    med = sorted(timed_s)[len(timed_s) // 2]
+    n_dec, s_dec = _hist_delta(tel["hists"], "span.decode_s")
+    n_fold, s_fold = _hist_delta(tel["hists"], "span.agg_fold_s")
+    steps = sum(c.rounds_trained for c in clients) * p["steps"]
+    wire = _wire_totals(tel["counters"])
+    rec = {"hub_mode": hub_mode, "lane": lane, "round_s": rounds_s, "median_round_s": med,
+           "uploads_per_s": sum(len(r["participants"]) for r in closes[1:] or closes) / sum(timed_s),
+           "encode_ms": 1e3 * sum(enc) / max(len(enc), 1),
+           "decode_ms": 1e3 * s_dec / max(n_dec, 1), "fold_ms": 1e3 * s_fold / max(n_fold, 1),
+           "wall_s": wall, "client_steps": steps, "launches": seen["conv3x3_mxu"],
+           "tc_launches": seen["conv3x3_mxu_tc"], "flash": seen["flash_attention_fwd"],
+           **wire, "hub": {k: hub_stats[k] for k in (
+               "zero_copy_forwards", "mcast_frames", "mcast_copies", "shm_frames", "shm_bytes",
+               "shm_fallbacks", "shm_hub_copies", "dropped_frames", "threads")}}
+    per_fwd = rec["launches"] / max(steps, 1)
+    print(f"[tcp] {label}: {rounds} rounds x {XD_CLIENTS} clients over the {hub_mode} hub, "
+          f"{lane} lane, in {wall:.2f} s; round s {[round(x, 4) for x in rounds_s]}, median "
+          f"{med:.4f} s, {rec['uploads_per_s']:.2f} uploads/s; per upload encode "
+          f"{rec['encode_ms']:.1f} ms, decode {rec['decode_ms']:.1f} ms, fold "
+          f"{rec['fold_ms']:.1f} ms; routed {wire['routed_frames']:.0f} frames / "
+          f"{wire['routed_bytes']:.0f} B (sent {wire['sent_frames']:.0f} / "
+          f"{wire['sent_bytes']:.0f} B); hub {rec['hub']}; conv3x3_mxu {rec['launches']} "
+          f"({rec['tc_launches']} tensor-core) for {steps} client forwards = {per_fwd:.2f} per "
+          f"forward ({card})")
+    if device == "cuda" and (rec["launches"] != 19 * steps
+                             or rec["tc_launches"] != TC_PER_FORWARD * steps):
+        fail(f"tcp {label}: conv launches {seen}, expected {19 * steps} "
+             f"({TC_PER_FORWARD * steps} tensor-core) for {steps} client forwards")
+    if rec["flash"]:
+        fail(f"tcp {label}: the ResNet-56 clients launched the flash kernel")
+    if rec["hub"]["dropped_frames"]:
+        fail(f"tcp {label}: the hub dropped frames {rec['hub']['dropped_frames']}")
+    if not all(np.isfinite(host_array(l)).all() for _, l in jax_leaves(server.variables)):
+        fail(f"tcp {label}: non-finite global model")
+    return server, snaps, rec
+
+
+def _launch_leaves(out: str) -> tuple:
+    """A launch's final leaves (in JAX's order) and round log."""
+    import numpy as np
+
+    z = np.load(out)
+    return [np.asarray(z[k]) for k in sorted(z.files, key=lambda k: (len(k), k))
+            if k.startswith("leaf_")], json.loads(str(z["round_log"]))
+
+
+def phase_tcp(device: str = "cuda"):
+    """The TCP transport of the port on the card.
+
+    1. [xdevice]'s sync federation over the port's TcpHub on loopback three
+       ways (reactor hub + tcp lane, reactor + shm lane, threaded + tcp),
+       each against the same federation over the InprocBus from the same
+       init: round 0's aggregate within XD_ROUND0_TOL, every client's
+       round-0 upload frame equal by sha256, a planted fault (client 2's
+       sample count doubled, one round over the reactor hub) beyond the gate,
+       19 conv launches per client forward (18 tensor-core); a message
+       holding a card tensor refused by the backend before any socket;
+    2. ``distributed_fedavg.launch()`` as processes on the card: hub,
+       server and 3 clients over the shm lane, 2 rounds of its LR problem,
+       and beside it the tree (2 muxers behind 2 edge hubs); each within 1e-5 of the
+       port's FedAvgSimulation on the card from the same seed, the tree's
+       model and upload digests byte for byte the flat run's.
+
+    ``device`` "cpu" rehearses the phase without a card (launch counts are
+    0 there, and the launches run their children with ``--device cpu``)."""
+    import tempfile
+    import threading
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig, FedAvgSimulation
+    from fedml_tpu_torch.comm.message import Message
+    from fedml_tpu_torch.comm.tcp import TcpBackend, TcpHub
+    from fedml_tpu_torch.compress import jax_leaves
+    from fedml_tpu_torch.experiments.distributed_fedavg import _build_problem, launch
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    launches = tc = 0
+
+    # a card tensor never reaches a socket: the backend refuses it
+    hub = TcpHub()
+    try:
+        a, b = TcpBackend(1, hub.host, hub.port), TcpBackend(2, hub.host, hub.port)
+        a.await_peers([2], timeout=30)
+        m = Message("C2S_SEND_MODEL", 1, 2)
+        m.add_params("model_params", {"__wiretree__": 2, "leaves": [
+            torch.zeros(4, device=device)]})
+        try:
+            a.send_message(m)
+            refused = False
+        except TypeError:
+            refused = True
+        a.stop()
+        b.stop()
+    finally:
+        hub.stop()
+    print(f"[tcp] a message holding a {device} tensor refused by TcpBackend: {refused} ({card})")
+    if device == "cuda" and not refused:
+        fail("tcp: a card tensor reached the TCP backend's socket path")
+    rec["device_leaf_refused"] = refused
+
+    with deterministic():
+        p = _xd_problem(device)
+        ref_frames, ref_snaps = {}, []
+        _, _, r_in, _ = _xd_run(p, device, label="in-process reference for [tcp]", card=card,
+                                wrap_server=lambda s: ref_snaps.append(_snapshots(s)),
+                                wrap_client=_upload_frames(ref_frames))
+        launches += r_in["launches"]
+        tc += r_in["tc_launches"]
+        ref0 = ref_snaps[0][0]
+        rec["inproc"] = r_in
+        for hub_mode, lane in TCP_MODES:
+            frames = {}
+            _, snaps, r = _tcp_run(p, device, label=f"{hub_mode} hub, {lane} lane", card=card,
+                                   hub_mode=hub_mode, lane=lane,
+                                   wrap_client=_upload_frames(frames))
+            launches += r["launches"]
+            tc += r["tc_launches"]
+            gap, leaf = _host_gap(snaps[0], ref0)
+            same = frames == ref_frames and len(frames) == XD_CLIENTS
+            print(f"[tcp] {hub_mode}/{lane} vs the InprocBus run: round 0 {gap:.3g} ({leaf}; "
+                  f"gate {XD_ROUND0_TOL:g}); round-0 upload frames equal by sha256: {same}; "
+                  f"median round {r['median_round_s']:.4f} s vs {r_in['median_round_s']:.4f} s "
+                  f"in process ({r['median_round_s'] / r_in['median_round_s']:.3f}x); uploads/s "
+                  f"{r['uploads_per_s']:.2f} vs {r_in['uploads_per_s']:.2f}; encode/decode/fold "
+                  f"ms {r['encode_ms']:.1f}/{r['decode_ms']:.1f}/{r['fold_ms']:.1f} vs "
+                  f"{r_in['encode_ms']:.1f}/{r_in['decode_ms']:.1f}/{r_in['fold_ms']:.1f}; "
+                  f"frames sync {r_in['sync_frame_bytes']} B, upload {r_in['upload_frame_bytes']} B "
+                  f"({card})")
+            if gap > XD_ROUND0_TOL:
+                fail(f"tcp {hub_mode}/{lane}: round 0 is not the in-process federation's")
+            if not same:
+                fail(f"tcp {hub_mode}/{lane}: round-0 upload frames differ from the in-process run")
+            if lane == "shm" and not r["hub"]["shm_frames"] > 0:
+                fail(f"tcp {hub_mode}/{lane}: no frame crossed a shared-memory lane")
+            rec[f"{hub_mode}_{lane}"] = {**r, "round0_gap": gap, "upload_frames_equal": same}
+
+        def double_n(client):
+            if client.backend.node_id != 2:
+                return
+            send = client.send_message
+
+            def doubled(msg):
+                if msg.type == "C2S_SEND_MODEL":
+                    msg.add_params("num_samples", 2.0 * msg.get("num_samples"))
+                send(msg)
+
+            client.send_message = doubled
+
+        _, fsnaps, rf = _tcp_run(p, device, label="planted fault (client 2's n doubled)",
+                                 card=card, hub_mode="reactor", lane="tcp", rounds=1,
+                                 wrap_client=double_n)
+        launches += rf["launches"]
+        tc += rf["tc_launches"]
+        f0 = _host_gap(fsnaps[0], ref0)[0]
+        print(f"[tcp] planted fault: round 0 {f0:.3g} from the in-process run (gate "
+              f"{XD_ROUND0_TOL:g}) ({card})")
+        if not f0 > XD_ROUND0_TOL:
+            fail("tcp: the planted fault (a doubled sample count) passed the round-0 gate")
+        rec["fault_round0_gap"] = f0
+
+    # -- distributed_fedavg.launch() as processes on the card ------------------------------
+    env = dict(os.environ)
+    env.pop("FEDML_TPU_FORCE_CPU", None)
+    env["OMP_NUM_THREADS"] = "1"
+    child_device = "" if device == "cuda" else "cpu"
+    ds, bundle, _, _ = _build_problem(0, TCP_LAUNCH["num_clients"], device=device)
+    sim = FedAvgSimulation(bundle, ds, FedAvgConfig(
+        num_clients=3, clients_per_round=3, comm_rounds=TCP_LAUNCH["rounds"], epochs=1,
+        batch_size=16, lr=0.1, seed=0, frequency_of_the_test=100), device=device)
+    sim.run()
+    want = [np.asarray(l.detach().cpu()) for _, l in jax_leaves(sim.state.variables)]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the flat run and the tree side by side (their children start up
+        # at once; each wall time is its own launch() call's)
+        topologies = {"flat": {}, "tree": dict(muxers=2, topology="tree", edge_hubs=2)}
+        done = {}
+
+        def run_launch(tag):
+            info = {}
+            t0 = time.perf_counter()
+            try:
+                rc = launch(out_path=os.path.join(tmp, f"{tag}.npz"), device=child_device,
+                            env=env, info=info, timeout=240.0, **TCP_LAUNCH, **topologies[tag])
+            except Exception as e:  # reported below, on the phase's thread
+                rc = repr(e)
+            done[tag] = (rc, info, time.perf_counter() - t0)
+
+        workers = [threading.Thread(target=run_launch, args=(tag,)) for tag in topologies]
+        for t in workers:
+            t.start()
+        for t in workers:
+            t.join(timeout=300)
+        for tag in topologies:
+            if tag not in done or done[tag][0] != 0:
+                fail(f"tcp: launch() {tag} did not end with 0: {done.get(tag, ('running',))[0]}")
+            _, info, wall = done[tag]
+            got, log = _launch_leaves(os.path.join(tmp, f"{tag}.npz"))
+            gap = max(float(np.abs(g.astype(np.float64) - w).max()) for g, w in zip(got, want))
+            digests = {k: v for k, v in sorted(info.items()) if k.endswith("_upload_digest")}
+            edges = {k: {x: v[x] for x in ("folded_uploads", "uplink_frames", "flat_fallbacks")}
+                     for k, v in info.items() if k.startswith("edge_") and k.endswith("_stats")}
+            hub_stats = info.get("hub_stats", {})
+            runs[tag] = {"wall_s": wall, "gap": gap, "leaves": got, "digests": digests,
+                         "participants": [r.get("participants") for r in log],
+                         "hub_stats": hub_stats, "edges": edges}
+            print(f"[tcp] launch() {tag}: hub, server, {len(digests)} clients"
+                  f"{' on 2 muxers behind 2 edge hubs' if tag == 'tree' else ''}, shm lane, "
+                  f"{TCP_LAUNCH['rounds']} rounds in {wall:.2f} s (flat and tree side by "
+                  f"side); max |Δ| against FedAvgSimulation on {device} {gap:.3g} (gate 1e-5); "
+                  f"participants {runs[tag]['participants']}; hub {hub_stats}; edges {edges} "
+                  f"({card})")
+            if gap > 1e-5 or len(got) != len(want):
+                fail(f"tcp: launch() {tag} is not the simulation")
+            if any(sorted(r or []) != [1, 2, 3] for r in runs[tag]["participants"]):
+                fail(f"tcp: launch() {tag} rounds missed a client")
+            if not hub_stats.get("shm_frames"):
+                fail(f"tcp: launch() {tag} moved no frame through a shared-memory lane")
+    tree_same = (runs["tree"]["digests"] == runs["flat"]["digests"]
+                 and len(runs["flat"]["digests"]) == 3
+                 and all(np.array_equal(a, b) for a, b in
+                         zip(runs["tree"]["leaves"], runs["flat"]["leaves"])))
+    print(f"[tcp] tree == flat byte for byte (upload digests and final model): {tree_same} "
+          f"({card})")
+    if not tree_same:
+        fail("tcp: the tree topology is not the flat one byte for byte")
+    edges = runs["tree"]["edges"].values()
+    if (len(edges) != 2 or any(e["flat_fallbacks"] or not e["folded_uploads"] for e in edges)
+            or sum(e["folded_uploads"] for e in edges) != 3 * TCP_LAUNCH["rounds"]):
+        fail(f"tcp: the edge hubs did not fold their cohorts {runs['tree']['edges']}")
+    for tag, r in runs.items():
+        rec[f"launch_{tag}"] = {k: v for k, v in r.items() if k != "leaves"}
+    rec["launches"] = launches
+    rec["tc_launches"] = tc
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[tcp] phase time: {rec['phase_s']:.1f} s; conv3x3_mxu launches {launches} "
+          f"({tc} tensor-core) ({card})")
+    return rec
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write every per-case number here as JSON")
@@ -3758,6 +4157,7 @@ def main() -> int:
     imagenet_rec = phase_imagenet()
     comm_rec = phase_comm()
     xdevice_rec = phase_xdevice()
+    tcp_rec = phase_tcp()
 
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
@@ -3774,7 +4174,8 @@ def main() -> int:
         "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
                      + compress_rec["launches"] + silo_rec["launches"]
                      + algos_rec["launches"] + standalone_rec["launches"]
-                     + imagenet_rec["launches"] + xdevice_rec["launches"]),
+                     + imagenet_rec["launches"] + xdevice_rec["launches"]
+                     + tcp_rec["launches"]),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -3819,7 +4220,7 @@ def main() -> int:
                        "algos": algos_rec,
                        "standalone": standalone_rec, "family": family_rec,
                        "cases_224": cases_224, "imagenet": imagenet_rec,
-                       "comm": comm_rec, "xdevice": xdevice_rec,
+                       "comm": comm_rec, "xdevice": xdevice_rec, "tcp": tcp_rec,
                        "kernels": kernels}, f, indent=1)
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,8 @@ Compute still runs through the same local-update operator as the
 simulation (``core/client.py``, on the client's device: ResNet-56 with
 ``conv_variant="kernel"`` runs the Hopper conv on every step); only
 coordination travels as messages, over any ``CommBackend`` (the
-in-process bus here; the TCP hub comes with the transport's port).
+in-process bus, or the TCP hub of ``comm/tcp.py``; as processes,
+``experiments/distributed_fedavg.py``).
 
 Where the numbers live:
 

@@ -3,10 +3,12 @@
 Reference ``fedml_core/distributed/communication/base_com_manager.py:7-27``
 (+ ``observer.py:4-7``): ``send_message`` / ``add_observer`` /
 ``handle_receive_message`` / ``stop_receive_message``.  A ``CommBackend``
-delivers ``Message`` envelopes between integer node ids; ``inproc`` is the
-deterministic in-process bus (``comm/inproc.py``), and the TCP hub of the
-JAX package comes later.  The reference's thread-kill-via-ctypes and
-0.3 s polling loops have no counterpart: inproc is synchronous.
+delivers ``Message`` envelopes between integer node ids: ``inproc`` is the
+deterministic in-process bus (``comm/inproc.py``), ``tcp`` the hub and its
+backend (``comm/tcp.py``).  The reference's thread-kill-via-ctypes and
+0.3 s polling loops have no counterpart: inproc is synchronous, and tcp
+reads on a reader thread (or the hub's one selector loop) and shuts down
+by sentinel.
 """
 
 from __future__ import annotations

@@ -10,8 +10,9 @@
 - ``traffic`` — seeded open-loop ``TrafficModel`` arrivals (offline
   rounds, stragglers, upload delays).
 
-Process-level injection (SIGKILL at round r, hub restart) lives with the
-process orchestration of the TCP transport, which is not ported yet.
+Process-level injection (SIGKILL at round r, hub restart, a crashed
+muxer or edge hub) lives with the process orchestration of the TCP
+transport, ``experiments/distributed_fedavg.py::launch``.
 """
 
 from fedml_tpu_torch.faults.plan import (

@@ -1,8 +1,8 @@
 """``ChaosBackend`` — fault-injecting ``CommBackend`` wrapper (port of
 ``fedml_tpu/faults/chaos.py``).
 
-Wraps ANY transport (the deterministic inproc bus now, the TCP hub
-backend when it is ported) and applies a ``FaultPlan`` on both paths:
+Wraps ANY transport (the deterministic inproc bus, the TCP hub's
+backend, a muxer's virtual node) and applies a ``FaultPlan`` on both paths:
 
 - **send**: ``send_message`` consults the plan before handing the frame
   to the inner transport — drop, corrupt (NaN-fill a model leaf),

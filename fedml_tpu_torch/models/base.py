@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import math
+import threading
 from typing import Dict, Sequence, Tuple
 
 import numpy as np
@@ -34,6 +35,21 @@ from torch import nn
 from fedml_tpu_torch.core import rng as rnglib
 
 Variables = Dict[str, Dict[str, torch.Tensor]]
+
+# ``torch.func.functional_call`` swaps the module's placeholders for the
+# given tensors for the length of the call, in place: two threads calling it
+# on one module (the clients of one process, each on its transport's reader
+# thread) would each run on the other's tensors.  Every call goes through
+# ``functional_call`` below, one at a time (reentrant: a model may call a
+# sub-module's functional form inside its own forward).
+_CALL_LOCK = threading.RLock()
+
+
+def functional_call(module: nn.Module, state: dict, args: tuple, kwargs=None):
+    """``torch.func.functional_call`` under the process's call lock."""
+    with _CALL_LOCK:
+        return torch.func.functional_call(module, state, args, kwargs)
+
 
 # flax's lecun_normal: variance_scaling(1, "fan_in", "truncated_normal");
 # the constant is the std of a unit normal truncated to [-2, 2]
@@ -239,7 +255,7 @@ class ModelBundle:
         kwargs = {"train": train, "updates": updates}
         if self.needs_dropout_rng:
             kwargs["rng"] = rng
-        return torch.func.functional_call(self.module, state, (x,), kwargs)
+        return functional_call(self.module, state, (x,), kwargs)
 
     def apply_train(self, variables: Variables, x: torch.Tensor,
                     rng=None) -> Tuple[torch.Tensor, Variables]:

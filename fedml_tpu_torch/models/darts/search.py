@@ -22,7 +22,7 @@ import torch
 from torch import nn
 
 from fedml_tpu_torch.core import rng as rnglib
-from fedml_tpu_torch.models.base import Dense, ModelBundle
+from fedml_tpu_torch.models.base import Dense, ModelBundle, functional_call
 from fedml_tpu_torch.models.darts.ops import (OPS, PRIMITIVES, FactorizedReduce, ReLUConvBN,
                                               Namer)
 from fedml_tpu_torch.models.resnet import BatchNorm, Conv
@@ -139,7 +139,7 @@ class SearchBundle:
 
     def _forward(self, variables, alphas, x, train: bool, updates: dict):
         state = {**variables["params"], **variables.get("batch_stats", {})}
-        return torch.func.functional_call(
+        return functional_call(
             self.module, state, (x, alphas["alphas_normal"], alphas["alphas_reduce"]),
             {"train": train, "updates": updates})
 

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from fedml_tpu_torch.models.base import Dense, Embed, ModelBundle, meta_param
+from fedml_tpu_torch.models.base import Dense, Embed, ModelBundle, functional_call, meta_param
 from fedml_tpu_torch.ops.flash_attention import flash_attention, pick_block
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -131,7 +131,7 @@ class TransformerLM(nn.Module):
                 # the recompute runs after functional_call has put the
                 # placeholders back, so it is handed the block's tensors
                 state = dict(block.named_parameters())
-                h = checkpoint(torch.func.functional_call, block, state, (h,),
+                h = checkpoint(functional_call, block, state, (h,),
                                use_reentrant=False)
             else:
                 h = block(h)
