@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``fedml_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--out PATH]
+    python3 chip_smoke.py [--out PATH] [--profile] [--phases build,mesh,...]
 
 Phases, in order; any failure exits non-zero:
 
@@ -43,7 +43,8 @@ Phases, in order; any failure exits non-zero:
              compute, SGD lr 1e-3 momentum 0.9 wd 1e-3) on the CIFAR-10
              stand-in with Dirichlet(0.5) clients: two rounds of 4 clients x
              4 steps through ``make_multi_round_fn``, then one
-             ``FedAvgSimulation.run`` round with ``evaluate_global``; the
+             ``FedAvgSimulation.run`` round (each client's shard cut to 4
+             steps) with ``evaluate_global``; the
              conv kernels must have run 19 times per forward, 18 of each
              bf16 training forward's (all but the stem) on the
              tensor-core route (evaluation runs in fp32, on v2).
@@ -62,9 +63,10 @@ Phases, in order; any failure exits non-zero:
              CINIC-10's augment without Cutout on 64 fixed images) on the card, held bitwise against the same call
              on the CPU and against jax 0.9.0's known answers
              (tests/threefry_known_answers.json).
-7. north_star — ``fedml_tpu_torch.bench.build_north_star`` at its full cut
-             (a warm-up round of one client, then one timed round;
-             ResNet-56 on the conv kernel, 10 clients x 24 steps x batch 64,
+7. north_star — ``fedml_tpu_torch.bench.build_north_star`` at its cut but
+             12 steps a client (a warm-up round of one client, then one
+             timed round; ResNet-56 on the conv kernel, 10 clients x 12
+             steps x batch 64,
              bf16), one warm-up round and one timed round; 19 conv launches
              per forward, 18 of them on the tensor-core route.
 8. sim     — ``FedAvgSimulation`` over the kernel ResNet-56 (bf16,
@@ -90,7 +92,7 @@ Phases, in order; any failure exits non-zero:
              qsgd8 payload of a trained update on the card against the
              CPU's (sha256); the codec stage's time and kernel launches per
              client (fused, and the per-leaf plain version), and its share
-             of a 4 x 8 x 64 round, timed in turns with the same round
+             of a 4 x 4 x 64 round, timed in turns with the same round
              without a codec (twice each way).
 11. pack   — the native row-gather packer must have built and loaded; the
              pack time of a 10 x 1536-image cohort, native and numpy.
@@ -100,7 +102,7 @@ Phases, in order; any failure exits non-zero:
              2xLSTM(256) on shakespeare and fed_shakespeare, the LSTM(670)
              on stackoverflow_nwp and the multi-label lr on
              stackoverflow_lr, each with the SGD lr and batch of the JAX
-             package's convergence record, 2 rounds of 10 sampled clients
+             package's convergence record, 2 rounds of 5 sampled clients
              (the first a warm-up); per pair the parameter count, median
              round ms, samples/s (tokens/s for the LSTMs) and final test
              metrics (precision and recall for stackoverflow_lr), all
@@ -115,7 +117,7 @@ Phases, in order; any failure exits non-zero:
              LDA alpha 0.5, bf16, augmentation on) at full width: ResNet-56
              on the conv kernel on cifar100 and cinic10, mobilenet on both,
              vgg16_bn, mobilenet_v3 and efficientnet on cifar100; 4 clients
-             of <= 128 samples, 2 rounds (the first a warm-up), 256 test
+             of <= 64 samples, 2 rounds (the first a warm-up), 128 test
              samples; per pair the parameter count, median round seconds,
              samples/s, final test accuracy and loss (finite) and the conv
              kernel's launches per forward (19 for ResNet-56, 18 of them
@@ -132,7 +134,7 @@ Phases, in order; any failure exits non-zero:
              flattened in NCHW order) that the round gate must refuse.
 14. algos  — the FedAvg-engine family through ``experiments.run.main`` on
              full-width ResNet-56 with ``--conv_variant kernel`` (bf16,
-             CIFAR-10 stand-in, 4 clients x 2 steps x 64, 2 rounds, a
+             CIFAR-10 stand-in, 4 clients x 1 step x 64, 1 round, a
              checkpoint every round): fedavg, FedProx (mu 0 and 0.01),
              FedOpt (sgd lr 1, adam, yogi), FedNova (momentum 0 and 0.9),
              robust FedAvg under the backdoor (norm_diff_clipping, weak_dp,
@@ -163,7 +165,7 @@ Phases, in order; any failure exits non-zero:
 16. family — the rest of the algorithm family through ``experiments.run.main``
              in fp32 (TF32 off, cuDNN deterministic), each number printed
              with the card's name and power limit: SplitNN's ring over 4
-             CIFAR-10 stand-in clients of 512 (the McMahan CNN's halves,
+             CIFAR-10 stand-in clients of 256 (the McMahan CNN's halves,
              batch 64, one epoch: seconds per client epoch, samples/s,
              validation accuracy), each card step from the CPU's float64
              state within 1e-3 of the float64 step, and the card's epoch
@@ -214,7 +216,7 @@ Phases, in order; any failure exits non-zero:
              ``algorithms/fedavg_cross_device.py`` over the in-process bus:
              ResNet-56 at full width on the conv kernel (bf16, the CIFAR-10
              stand-in at Dirichlet 0.5, 4 clients of <= 128 samples, batch
-             64, 3 rounds, the first a warm-up, cuDNN deterministic).  Sync,
+             64, 2 rounds, the first a warm-up, cuDNN deterministic).  Sync,
              held against FedAvgSimulation on the card: round 0's aggregate
              within 1e-6, the last round (the simulation's from the
              federation's previous global) within 1e-5, a planted fault (a
@@ -231,7 +233,7 @@ Phases, in order; any failure exits non-zero:
              upload, frame bytes and conv launches per client forward (19,
              18 tensor-core), no flash launch.
 20. tcp    — the TCP transport: [xdevice]'s sync federation over the port's
-             TcpHub on loopback (server, hub and clients in one process, a
+             TcpHub on loopback (2 rounds; server, hub and clients in one process, a
              TcpBackend each), reactor hub with the tcp lane, reactor with
              the shm lane, threaded with the tcp lane, each held against the
              same federation over the InprocBus: round 0's aggregate within
@@ -246,6 +248,21 @@ Phases, in order; any failure exits non-zero:
              problem; beside it 2 muxers behind 2 edge hubs), each within 1e-5
              of FedAvgSimulation on the card, the tree byte for byte the
              flat run; each launch's wall time and hub counters.
+21. mesh   — FedAvg over a clients mesh (``fedml_tpu_torch/parallel/``):
+             one ``make_spmd_round_fn`` round of ResNet-56 (full width, conv
+             kernel, bf16, [main]'s optimizer, 4 clients x 2 steps of 64) on
+             a 1-rank NCCL mesh, byte for byte ``make_round_fn`` on the card
+             and timed beside it in turns, 19 conv launches per forward (18
+             tensor-core), ``describe_mesh`` on ``cuda``; the two-tier round
+             on a 1 x 1 (group, clients) mesh against
+             ``HierarchicalSimulation`` and the compiled template round
+             against the message form; then 2 gloo ranks sharing the card:
+             a dp round within 8 float32 spacings of its one-device round
+             and the gossip's dense SPMD form against the dense round, with
+             the ranks' start-up seconds.
+
+``--phases a,b,...`` runs only the named phases, in this order; every
+phase prints its seconds.
 
 Every kernel's launch counter is zeroed just before each path and read just
 after it.  The line before the last is the kernels' JSON record, the line
@@ -267,6 +284,7 @@ import os
 import subprocess
 import sys
 import time
+from typing import Optional
 
 N = 64
 # (name, spatial, Cin, Cout, stride, convs of this shape per ResNet-56 forward)
@@ -305,6 +323,9 @@ FLASH_CASES = [
     ("run_py_bf16", 64, 80, 4, 16, "bf16", True),
 ]
 BENCH_LAYERS = 12  # flash launches per forward at the bench width
+# [north_star]'s steps per client (the bench's 24, cut to make room for
+# [mesh]; the timed round's per-step time is the measure)
+NORTH_STAR_STEPS = 12
 TC_PER_FORWARD = 18  # tensor-core launches per bf16 ResNet-56 forward: every 3x3 conv but the stem
 TOL = {"fp32": 1e-4, "bf16": 2e-2}
 MOMENT_RTOL = 1e-3
@@ -349,16 +370,23 @@ ZOO = [
     ("stackoverflow_nwp", "rnn", 16, 0.31622776601683794, 64, 20, 10004, (20,)),
     ("stackoverflow_lr", "lr", 10, 0.03, 64, None, 500, (10000,)),
 ]
-ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 10, 2, 512
-# [compress]: the codec stage's share of a 4 x 8 x 64 round, the plain and
+# (5 clients a round and 256 test samples, cut from 10 and 512 to make room
+# for [mesh])
+ZOO_CLIENTS, ZOO_PER_ROUND, ZOO_ROUNDS, ZOO_TEST = 100, 5, 2, 256
+# [compress]: the codec stage's share of a round, the plain and
 # int8 + EF rounds timed in turns (plain, int8, int8, plain) this many times
 COMPRESS_TURNS = 1
+# ... of a 4 x COMPRESS_STEPS x 64 round (cut from 8 steps to make room for
+# [mesh]), and its host ops profiled over COMPRESS_PROFILED clients of one
+# step each (cut from 4)
+COMPRESS_STEPS, COMPRESS_PROFILED = 4, 2
 
 # [silo]: FedML's cross-silo benchmark rows (BASELINE.md, "Cross-silo DNNs":
 # FedAvg, LDA alpha 0.5, SGD lr 1e-3, wd 1e-3, batch 64) through
 # experiments/run.py's main at full width, bf16, augmentation on (crop, flip
-# and Cutout(16) on cifar100, crop and flip on cinic10): 4 clients of <= 128
-# samples (2 steps of 64), 2 rounds (the first a warm-up), 256 test samples.
+# and Cutout(16) on cifar100, crop and flip on cinic10): 4 clients of <= 64
+# samples (1 step of 64; cut from 128 to make room for [mesh]), 2 rounds (the
+# first a warm-up), 128 test samples (cut from 256).
 # (dataset, model, extra flags); ResNet-56 runs its 3x3 convs on the kernel
 SILO_PAIRS = [
     ("cifar100", "resnet56", ["--conv_variant", "kernel"]),
@@ -369,7 +397,7 @@ SILO_PAIRS = [
     ("cifar100", "mobilenet_v3", []),
     ("cifar100", "efficientnet", []),
 ]
-SILO_CLIENTS, SILO_SAMPLES, SILO_BATCH, SILO_ROUNDS, SILO_TEST = 4, 128, 64, 2, 256
+SILO_CLIENTS, SILO_SAMPLES, SILO_BATCH, SILO_ROUNDS, SILO_TEST = 4, 64, 64, 2, 128
 SILO_COMMON = [
     "--algorithm", "fedavg", "--client_num_in_total", str(SILO_CLIENTS),
     "--client_num_per_round", str(SILO_CLIENTS), "--partition_method", "hetero",
@@ -430,11 +458,12 @@ IMAGENET_SIDE = 224  # the loaders' image_size
 
 # [algos]: the FedAvg-engine family through experiments/run.py's main on
 # full-width ResNet-56 (every 3x3 conv on the kernel, bf16 compute) over the
-# CIFAR-10 stand-in: 4 clients of 128 samples (an equal split: 2 full steps
-# of 64 each per round), 1 round (cut from 2 to make room for [tcp]: the
+# CIFAR-10 stand-in: 4 clients of 64 samples (an equal split: 1 full step of
+# 64 each per round; cut from 128 to make room for [mesh]), 1 round (cut
+# from 2 to make room for [tcp]: the
 # identities below are held after round 1), 256 test samples, SGD lr 0.01,
 # no decay
-ALGO_CLIENTS, ALGO_SAMPLES, ALGO_BATCH, ALGO_ROUNDS, ALGO_TEST = 4, 128, 64, 1, 256
+ALGO_CLIENTS, ALGO_SAMPLES, ALGO_BATCH, ALGO_ROUNDS, ALGO_TEST = 4, 64, 64, 1, 256
 ALGO_COMMON = [
     "--dataset", "cifar10", "--model", "resnet56", "--conv_variant", "kernel",
     "--client_num_in_total", str(ALGO_CLIENTS), "--client_num_per_round",
@@ -497,19 +526,24 @@ STANDALONE_CASES = [
 ZOO_ROUND_RTOL = 1e-4
 # [family]: the rest of the algorithm family through experiments/run.py's main,
 # fp32 on library convs, over 4 clients of the CIFAR-10 stand-in (homo).
-# SplitNN: 512 samples each, batch 64, one ring epoch (the McMahan CNN's
+# SplitNN: 256 samples each (cut from 512 to make room for [mesh]), batch 64,
+# one ring epoch (the McMahan CNN's
 # halves at full width: 32/64 channels, a 512-wide dense layer) at SGD lr
 # 0.003, where the loss falls (at 0.01 it rises past ln 10).  FedNAS: 16
 # samples each (one step of 16 a round), one round of search (the entry
 # point's darts_search(C=8, layers=4)) then one of train, at arch_order 1 and 2.
 FAMILY_COMMON = ["--dataset", "cifar10", "--client_num_in_total", "4",
                  "--client_num_per_round", "4", "--partition_method", "homo", "--seed", "0"]
-SPLIT_ARGV = ["--algorithm", "splitnn", *FAMILY_COMMON, "--max_samples_per_client", "512",
+SPLIT_ARGV = ["--algorithm", "splitnn", *FAMILY_COMMON, "--max_samples_per_client", "256",
               "--max_test_samples", "512", "--batch_size", "64", "--comm_round", "1",
               "--lr", "0.003"]
+# FedNAS's search and train rounds run NAS_CLIENTS of them (cut from 4 to make
+# room for [mesh]: a DARTS step is 1.2-2.9 s on the card)
+NAS_CLIENTS = 2
 NAS_ARGV = ["--algorithm", "fednas", "--stage", "train", *FAMILY_COMMON,
-            "--max_samples_per_client", "16", "--max_test_samples", "256", "--batch_size",
-            "16", "--comm_round", "1"]
+            "--client_num_in_total", str(NAS_CLIENTS), "--client_num_per_round",
+            str(NAS_CLIENTS), "--max_samples_per_client", "16", "--max_test_samples", "256",
+            "--batch_size", "16", "--comm_round", "1"]
 # [family] SplitNN: the fp32 ring is chaotic (a ReLU pre-activation within
 # fp32's rounding of zero takes the other side in float64, and the runs
 # part from there; the CPU's fp32 epoch from an init one ulp off lands as
@@ -986,6 +1020,7 @@ def phase_main(profile: bool):
     from fedml_tpu_torch.core.rng import PRNGKey
     from fedml_tpu_torch.core.types import device_resident_pack
     from fedml_tpu_torch.data.cifar import load_cifar10
+    from fedml_tpu_torch.experiments.registry import shrink_dataset
     from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
 
     clients, steps, rounds, batch = 4, 4, 2, 64
@@ -1035,7 +1070,9 @@ def phase_main(profile: bool):
                        comm_rounds=1, epochs=1, batch_size=batch, lr=0.001,
                        momentum=0.9, weight_decay=1e-3, frequency_of_the_test=1,
                        seed=0, compute_dtype="bf16")
-    sim = FedAvgSimulation(bundle, ds, cfg)
+    # each client's shard cut to `steps` steps (from 23, to make room for [mesh])
+    sim_ds = shrink_dataset(ds, steps * batch, 0)
+    sim = FedAvgSimulation(bundle, sim_ds, cfg)
     reset_launches()
     t0 = time.perf_counter()
     row = sim.run(1)[-1]
@@ -1183,14 +1220,15 @@ def phase_rng():
 
 
 def phase_north_star(profile: bool):
-    """build_north_star at its own cut: a warm-up round of one client (the
-    same steps), then one timed round of the whole cohort."""
+    """build_north_star at its own cut but NORTH_STAR_STEPS steps a client:
+    a warm-up round of one client (the same steps), then one timed round of
+    the whole cohort."""
     import numpy as np
     import torch
 
     from fedml_tpu_torch.bench import build_north_star
 
-    clients, steps, batch = 10, 24, 64
+    clients, steps, batch = 10, NORTH_STAR_STEPS, 64
     t0 = time.perf_counter()
     round_fn, state, args, samples = build_north_star(
         clients=clients, steps=steps, batch=batch, rounds_per_call=1,
@@ -1233,7 +1271,7 @@ def phase_north_star(profile: bool):
     return rec
 
 
-def phase_sim(step_ms: float):
+def phase_sim(step_ms: Optional[float] = None):
     """FedAvgSimulation with augmentation, sampled cohorts and dropout:
     run(), crash + resume, and run_fused_sampled, bit for bit.  ``step_ms``
     is the north star's step time, which the augment and threefry costs
@@ -1340,13 +1378,14 @@ def phase_sim(step_ms: float):
     print(f"[sim] crash before round {crashed_at} with {saved} on disk, resume() from "
           f"round {resumed_from}: max |variable - run()| {diff_resume:.3g}; "
           f"run_fused_sampled: max |variable - run()| {diff_fused:.3g}")
-    epoch_ms = 24 * step_ms
     print(f"[sim] per client-epoch of 24 x 64 images (host clock, synced): augment "
           f"{rec['augment_ms_per_client_epoch']:.3f} ms, threefry draws "
-          f"{rec['threefry_ms_per_client_epoch']:.3f} ms, beside 24 north-star steps "
-          f"of {step_ms:.2f} ms = {epoch_ms:.1f} ms (augment "
-          f"{100 * rec['augment_ms_per_client_epoch'] / epoch_ms:.2f}%, threefry "
-          f"{100 * rec['threefry_ms_per_client_epoch'] / epoch_ms:.2f}%)")
+          f"{rec['threefry_ms_per_client_epoch']:.3f} ms")
+    if step_ms is not None:
+        epoch_ms = 24 * step_ms
+        print(f"[sim] beside 24 north-star steps of {step_ms:.2f} ms = {epoch_ms:.1f} ms: "
+              f"augment {100 * rec['augment_ms_per_client_epoch'] / epoch_ms:.2f}%, "
+              f"threefry {100 * rec['threefry_ms_per_client_epoch'] / epoch_ms:.2f}%")
     if seen["conv3x3_mxu"] != 19 * (train_fwd + eval_fwd) or \
             seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * train_fwd:
         fail(f"sim: conv launches {seen}, expected {19 * (train_fwd + eval_fwd)} "
@@ -1434,6 +1473,42 @@ def _zoo_round(dataset, model, batch, lr, classes, shape, tokens, device,
     return new.variables, metrics, round_fn, state, args
 
 
+def _zoo_round_specs() -> list:
+    """One (dataset, model, batch, lr, classes, shape, tokens) per zoo model
+    (the LSTMs and the lrs once per dataset)."""
+    models = {}
+    for dataset, model, batch, lr, cap, tokens, classes, shape in ZOO:
+        key = (model, dataset if model in ("rnn", "lr") else "")
+        models.setdefault(key, (dataset, model, batch, lr, classes, shape, tokens))
+    return list(models.values())
+
+
+def _zoo_cpu_rounds(out_path: str) -> None:
+    """The CPU's side of [zoo]'s card-against-CPU rounds, in a process of its
+    own beside the card's work (``_start_zoo_cpu_rounds``): each model's
+    fp32 and float64 round, saved to ``out_path``."""
+    import torch
+
+    os.nice(10)  # behind the card's host thread, whose times the phase prints
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    out = {}
+    for spec in _zoo_round_specs():
+        host, hm, *_ = _zoo_round(*spec, "cpu")
+        ref = _zoo_round(*spec, "cpu", float64=True)[0]
+        out[spec[:2]] = {"host": host, "ref": ref, "loss_sum": float(hm["loss_sum"])}
+    torch.save(out, out_path)
+
+
+def _start_zoo_cpu_rounds(tmp: str):
+    """``_zoo_cpu_rounds`` in a new Python process; returns (the process,
+    its output path)."""
+    out_path = os.path.join(tmp, "zoo_cpu.pt")
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            f"chip_smoke._zoo_cpu_rounds({out_path!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=here), out_path
+
+
 def phase_zoo(profile: bool, device: str = "cuda"):
     """The cross-device zoo: every (dataset, model) pair of ZOO through
     ``experiments/run.py::run_experiment`` at full width on the default
@@ -1442,17 +1517,34 @@ def phase_zoo(profile: bool, device: str = "cuda"):
     card in fp32 (TF32 off) held within ZOO_ROUND_RTOL of the same round on
     the CPU in float64, and the dropout masks card == CPU bit for bit.  No zoo
     path may launch the conv or flash kernel.  ``device`` "cpu" rehearses
-    the phase without a card (both sides then run on the CPU)."""
+    the phase without a card (both sides then run on the CPU); the CPU's
+    rounds run in a process of their own beside the pairs."""
+    import tempfile
+
+    import torch
+
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, out_path = _start_zoo_cpu_rounds(tmp)  # beside the pairs
+        try:
+            return _zoo_phase(profile, device, sync, (proc, out_path))
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _zoo_phase(profile, device, sync, cpu_rounds):
+    """phase_zoo's body; ``cpu_rounds`` is ``_start_zoo_cpu_rounds``'s
+    process and output path."""
     import statistics
 
-    import numpy as np
     import torch
 
     from fedml_tpu_torch.core import rng as rnglib
     from fedml_tpu_torch.experiments import run
     from fedml_tpu_torch.models.base import Dropout
 
-    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
     rec = {}
     reset_launches()
     for dataset, model, batch, lr, cap, tokens, classes, shape in ZOO:
@@ -1508,19 +1600,35 @@ def phase_zoo(profile: bool, device: str = "cuda"):
         gaps = [leaf_gap(a[coll], b[coll]) for coll in b]
         return max(g[0] for g in gaps), max(g[2] for g in gaps)
 
-    models = {}
-    for dataset, model, batch, lr, cap, tokens, classes, shape in ZOO:
-        key = (model, dataset if model in ("rnn", "lr") else "")
-        models.setdefault(key, (dataset, model, batch, lr, classes, shape, tokens))
-    for dataset, model, batch, lr, classes, shape, tokens in models.values():
-        spec = (dataset, model, batch, lr, classes, shape, tokens)
+    cards = {}
+    for spec in _zoo_round_specs():
         card, cm, round_fn, state, args = _zoo_round(*spec, device)
-        host, hm, *_ = _zoo_round(*spec, "cpu")
-        ref, _, *_ = _zoo_round(*spec, "cpu", float64=True)
+        cards[spec[:2]] = ({c: {k: v.cpu() for k, v in d.items()} for c, d in card.items()},
+                           float(cm["loss_sum"]))
+        if profile and device == "cuda":
+            prof = profile_round(round_fn, state, args)
+            prof["launches_per_step"] = prof["kernel_launches"] / 4
+            if spec[6]:
+                prof["launches_per_timestep"] = prof["launches_per_step"] / spec[6]
+            print(f"[zoo] {spec[1]}/{spec[0]}: {prof['launches_per_step']:.0f} kernel "
+                  "launches per training step (a 2 x 2 round's launches / 4, aggregation "
+                  "included)" + (f", {prof['launches_per_timestep']:.1f} per timestep"
+                                 if spec[6] else ""))
+            rec[f"profile {spec[1]}/{spec[0]}"] = prof
+        del card, state, args, round_fn
+    proc, out_path = cpu_rounds
+    t0 = time.perf_counter()
+    if proc.wait() != 0:
+        fail(f"zoo: the CPU's reference rounds exited {proc.returncode}")
+    print(f"[zoo] waited {time.perf_counter() - t0:.1f} s for the CPU's rounds")
+    cpu = torch.load(out_path)
+    for dataset, model, *_ in _zoo_round_specs():
+        card, loss_c = cards.pop((dataset, model))
+        c = cpu.pop((dataset, model))
+        host, ref, loss_h = c["host"], c["ref"], c["loss_sum"]
         worst, worst_abs = rel_diff(card, ref)
         host_ref, _ = rel_diff(host, ref)
         card_host, card_host_abs = rel_diff(card, host)
-        loss_c, loss_h = float(cm["loss_sum"]), float(hm["loss_sum"])
         tag = f"{model}/{dataset}"
         print(f"[zoo] {tag}: one round of 2 clients x 2 steps (fp32, TF32 off): card vs "
               f"cpu float64 max |Δ| {worst_abs:.3g}, / max |leaf| {worst:.3g}; card vs cpu "
@@ -1530,17 +1638,10 @@ def phase_zoo(profile: bool, device: str = "cuda"):
             fail(f"zoo {tag}: the card's round is not the CPU's float64 one ({worst:.3g})")
         rec[f"round {tag}"] = {"card_vs_f64": worst, "card_vs_f64_abs": worst_abs,
                                "card_vs_cpu": card_host, "card_vs_cpu_abs": card_host_abs,
-                               "cpu_vs_f64": host_ref, "loss_sum": [loss_c, loss_h]}
-        if profile and device == "cuda":
-            prof = profile_round(round_fn, state, args)
-            prof["launches_per_step"] = prof["kernel_launches"] / 4
-            if tokens:
-                prof["launches_per_timestep"] = prof["launches_per_step"] / tokens
-            print(f"[zoo] {tag}: {prof['launches_per_step']:.0f} kernel launches per "
-                  "training step (a 2 x 2 round's launches / 4, aggregation included)"
-                  + (f", {prof['launches_per_timestep']:.1f} per timestep" if tokens else ""))
-            rec[f"round {tag}"]["profile"] = prof
-        del card, host, state, args, round_fn
+                               "cpu_vs_f64": host_ref, "loss_sum": [loss_c, loss_h],
+                               **({"profile": rec.pop(f"profile {tag}")}
+                                  if f"profile {tag}" in rec else {})}
+        del card, host, ref
     # the CNN's dropout masks, card against CPU, bit for bit
     drop = Dropout(0.25)
     drop.state_prefix = "Dropout_0."  # CNNDropOut's first dropout scope
@@ -1638,6 +1739,20 @@ def _host_profile(fn) -> dict:
     return {"launches": sum(e.count for e in events
                             if e.device_type == torch.autograd.DeviceType.CUDA),
             "host_ms": sum(t for _, t in ops.values()), "ops": ops}
+
+
+def _launches(fn) -> int:
+    """The CUDA kernels one call of ``fn`` launches (``torch.profiler`` with
+    the CUDA activity only: no host-op events to collect)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def _sync_ms(fn, reps: int) -> float:
@@ -1814,14 +1929,14 @@ def phase_compress():
         return compress.roundtrip_tree(codec, delta, key)
 
     stage_ms, leaf_ms = _sync_ms(fused, 20), _sync_ms(per_leaf, 2)
-    stage_launches = _host_profile(fused)["launches"]
-    leaf_launches = _host_profile(per_leaf)["launches"]
+    stage_launches, leaf_launches = _launches(fused), _launches(per_leaf)
     print(f"[compress] codec stage per client (int8 + EF, ResNet-56, host clock, synced): "
           f"fused {stage_ms:.3f} ms, {stage_launches} kernel launches; per leaf "
           f"{leaf_ms:.3f} ms, {leaf_launches} launches")
 
     # its share of a round: the same round with and without the codec
-    clients, steps, batch = 4, 8, 64
+    # (COMPRESS_STEPS steps a client)
+    clients, steps, batch = 4, COMPRESS_STEPS, 64
     bundle = resnet56_tpu(conv_variant="kernel")
     lu = make_local_update(bundle, make_client_optimizer("sgd", 0.001, momentum=0.9,
                                                          weight_decay=1e-3),
@@ -1867,14 +1982,16 @@ def phase_compress():
     # where a round's extra host time goes: one profiled round of each,
     # ops ranked by how much more host time they took with the codec
     # (one step per client: the codec's cost does not depend on the steps)
-    short = (args[0][:, :1], args[1][:, :1], args[2][:, :1],
-             torch.full((clients,), float(batch), device="cuda"), *args[4:])
+    k = COMPRESS_PROFILED
+    short = (args[0][:k, :1], args[1][:k, :1], args[2][:k, :1],
+             torch.full((k,), float(batch), device="cuda"), args[4][:k], args[5][:k])
     prof = {name: _host_profile(lambda n=name: rounds[n][0](rounds[n][1], *short))
             for name in rounds}
-    extra = (prof["int8_ef"]["launches"] - prof["plain"]["launches"]) / clients
+    extra = (prof["int8_ef"]["launches"] - prof["plain"]["launches"]) / k
     grown = sorted(prof["int8_ef"]["ops"], key=lambda op: prof["plain"]["ops"].get(
         op, (0, 0.0))[1] - prof["int8_ef"]["ops"][op][1])[:5]
-    print(f"[compress] profiled rounds: plain {prof['plain']['launches']} launches, "
+    print(f"[compress] profiled rounds of {k} clients x 1 step: plain "
+          f"{prof['plain']['launches']} launches, "
           f"{prof['plain']['host_ms']:.1f} ms host op time; int8 + EF "
           f"{prof['int8_ef']['launches']} launches ({extra:.0f} more per client), "
           f"{prof['int8_ef']['host_ms']:.1f} ms host op time")
@@ -2006,33 +2123,90 @@ def _silo_faults():
                                lambda x, out: pool(x, out).permute(0, 3, 1, 2)))]
 
 
-def _silo_family_rounds(device, controls, card, rec, profile=False):
+def _silo_cpu_rounds(in_path: str, out_path: str) -> None:
+    """[silo]'s CPU side of the family rounds, in a process of its own
+    beside the card's work (``_start_silo_cpu_rounds``): for each family's
+    init in ``in_path`` (host fp32, drawn on the card), the CPU's fp32
+    round (timed), its float64 round, and the fp32 rounds from the init one
+    ulp up and down, saved to ``out_path``."""
+    import torch
+
+    os.nice(10)  # behind the card's host thread, whose times the phase prints
+    torch.set_num_threads(max(1, (os.cpu_count() or 2) - 2))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    out = {}
+    for model, host_vars in torch.load(in_path).items():
+        (host, hm, *_), cpu_ms = _ms_of(lambda: _silo_round(model, host_vars, "cpu"), "cpu")
+        ref = _silo_round(model, host_vars, "cpu", float64=True)[0]
+        spread = [_round_gap(host, ref)] + [
+            _round_gap(_silo_round(model, _ulp_bumped(host_vars, to), "cpu")[0], ref)
+            for to in (math.inf, -math.inf)]
+        out[model] = {"host": host, "ref": ref, "spread": spread, "cpu_ms": cpu_ms,
+                      "loss_sum": float(hm["loss_sum"])}
+    torch.save(out, out_path)
+
+
+def _start_silo_cpu_rounds(device, tmp: str):
+    """Draw each SILO_FAMILIES init on ``device``, save their host copies and
+    start ``_silo_cpu_rounds`` on them in a new Python process; returns
+    (the process, its output path)."""
+    import torch
+
+    from fedml_tpu_torch.core.rng import PRNGKey
+
+    in_path, out_path = os.path.join(tmp, "silo_inits.pt"), os.path.join(tmp, "silo_cpu.pt")
+    torch.save({m: _tree_as(_silo_bundle(m, device).init(PRNGKey(0)), torch.float32, "cpu")
+                for m in SILO_FAMILIES}, in_path)
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys; sys.path.insert(0, {here!r}); import chip_smoke; "
+            f"chip_smoke._silo_cpu_rounds({in_path!r}, {out_path!r})")
+    return subprocess.Popen([sys.executable, "-c", code], cwd=here), out_path
+
+
+def _silo_family_rounds(device, controls, card, rec, cpu_rounds, profile=False):
     """[silo]'s card against the CPU, one round per SILO_FAMILIES model from
     one init drawn on the card: the card's fp32 round held to the CPU's
     float64 round within the larger of ZOO_ROUND_RTOL and SILO_CHAOS x the
     spread of the CPU's fp32 rounds (from the init and from it one ulp up
-    and down); with ``controls`` the planted faults of ``_silo_faults``
-    must land beyond their family's gate; with ``profile`` a
-    ``torch.profiler`` trace of the card's round.  Records into ``rec``."""
+    and down; ``cpu_rounds`` is ``_start_silo_cpu_rounds``'s process, which
+    computes them); with ``controls`` the planted faults of
+    ``_silo_faults`` must land beyond their family's gate; with ``profile``
+    a ``torch.profiler`` trace of the card's round.  Records into ``rec``."""
     import torch
 
     from fedml_tpu_torch.core.rng import PRNGKey
 
     faults = _silo_faults() if controls else []
     refs = {}
+    cards = {}
     for model in SILO_FAMILIES:
         variables = _silo_bundle(model, device).init(PRNGKey(0))
-        host_vars = _tree_as(variables, torch.float32, "cpu")
         (got, gm, *card_round), card_ms = _ms_of(
             lambda: _silo_round(model, variables, device), device)
-        (host, hm, *_), cpu_ms = _ms_of(lambda: _silo_round(model, host_vars, "cpu"), "cpu")
-        ref = _silo_round(model, host_vars, "cpu", float64=True)[0]
-        spread = [_round_gap(host, ref)] + [
-            _round_gap(_silo_round(model, _ulp_bumped(host_vars, to), "cpu")[0], ref)
-            for to in (math.inf, -math.inf)]
+        cards[model] = (_tree_as(got, torch.float32, "cpu"), float(gm["loss_sum"]), card_ms)
+        if profile and device == "cuda":
+            prof = profile_round(*card_round)
+            prof["launches_per_step"] = prof["kernel_launches"] / 4
+            print(f"[silo] {model}: {prof['launches_per_step']:.0f} kernel launches per "
+                  "training step (a 2 x 2 round's launches / 4, aggregation included)")
+            rec[f"profile {model}"] = prof
+        del got, variables, card_round
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    proc, out_path = cpu_rounds
+    t0 = time.perf_counter()
+    if proc.wait() != 0:
+        fail(f"silo: the CPU's reference rounds exited {proc.returncode}")
+    waited = time.perf_counter() - t0
+    cpu = torch.load(out_path)
+    print(f"[silo] waited {waited:.1f} s for the CPU's rounds ({card})")
+    for model in SILO_FAMILIES:
+        got, loss_c, card_ms = cards.pop(model)
+        c = cpu.pop(model)
+        host, ref, spread, cpu_ms, loss_h = (c["host"], c["ref"], c["spread"], c["cpu_ms"],
+                                             c["loss_sum"])
         gate = max(ZOO_ROUND_RTOL, SILO_CHAOS * max(spread))
         worst, card_host = _round_gap(got, ref), _round_gap(got, host)
-        loss_c, loss_h = float(gm["loss_sum"]), float(hm["loss_sum"])
         print(f"[silo] {model}: one round of 2 clients x 2 steps of {SILO_ROUND_BATCH} (fp32, "
               f"TF32 off, sgd lr {SILO_ROUND_LR:g}), max |Δ| / max(1, max |leaf|): card vs "
               f"cpu float64 {worst:.3g} (gate {gate:.3g}); cpu fp32 vs float64 from the init, "
@@ -2044,20 +2218,15 @@ def _silo_family_rounds(device, controls, card, rec, profile=False):
                  f"({worst:.3g} > {gate:.3g})")
         rec[f"round {model}"] = {"card_vs_f64": worst, "gate": gate, "cpu_spread": spread,
                                  "card_vs_cpu": card_host, "loss_sum": [loss_c, loss_h],
-                                 "card_ms": card_ms, "cpu_ms": cpu_ms}
-        if profile and device == "cuda":
-            prof = profile_round(*card_round)
-            prof["launches_per_step"] = prof["kernel_launches"] / 4
-            print(f"[silo] {model}: {prof['launches_per_step']:.0f} kernel launches per "
-                  "training step (a 2 x 2 round's launches / 4, aggregation included)")
-            rec[f"round {model}"]["profile"] = prof
+                                 "card_ms": card_ms, "cpu_ms": cpu_ms,
+                                 **({"profile": rec.pop(f"profile {model}")}
+                                    if f"profile {model}" in rec else {})}
         if model in {m for m, *_ in faults}:
-            refs[model] = (variables, ref, gate)
-        del got, host, ref, variables, host_vars, card_round
-        if device == "cuda":
-            torch.cuda.empty_cache()
+            refs[model] = (ref, gate)
+        del got, host, ref
     for model, fault, planted in faults:
-        variables, ref, gate = refs[model]
+        ref, gate = refs[model]
+        variables = _silo_bundle(model, device).init(PRNGKey(0))
         with planted:
             got = _silo_round(model, variables, device)[0]
         g = _round_gap(got, ref)
@@ -2102,7 +2271,10 @@ def phase_silo(profile: bool = False, controls: bool = False, device: str = "cud
     rec = {"gpu": card}
     t_phase = time.perf_counter()
     launches = tc_launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as stack:
+        # the family rounds' CPU side runs beside the pairs
+        cpu_rounds = _start_silo_cpu_rounds(device, tmp)
+        stack.callback(lambda: cpu_rounds[0].poll() is None and cpu_rounds[0].kill())
         for dataset, model, extra in SILO_PAIRS:
             ds = shrink_dataset(load_data(dataset, "", SILO_CLIENTS, "hetero", 0.5, 0),
                                 SILO_SAMPLES, SILO_TEST)
@@ -2149,13 +2321,13 @@ def phase_silo(profile: bool = False, controls: bool = False, device: str = "cud
             if device == "cuda" and (seen["conv3x3_mxu"], seen["conv3x3_mxu_tc"]) != want:
                 fail(f"silo {tag}: conv launches {seen}, expected {want[0]} ({want[1]} "
                      "tensor-core)")
-    rec.update(launches=launches, tc_launches=tc_launches)
+        rec.update(launches=launches, tc_launches=tc_launches)
 
-    # cuDNN's algorithms pinned, so a card's round repeats
-    reset_launches()
-    with deterministic():
-        _silo_family_rounds(device, controls, card, rec, profile)
-    seen = read_launches()
+        # cuDNN's algorithms pinned, so a card's round repeats
+        reset_launches()
+        with deterministic():
+            _silo_family_rounds(device, controls, card, rec, cpu_rounds, profile)
+        seen = read_launches()
     if any(seen.values()):
         fail(f"silo: a family round launched a kernel of the JAX package's Pallas paths: {seen}")
 
@@ -3200,8 +3372,9 @@ def _family_fednas(device, tmp, card, reference, controls):
         r[f"arch_order{order}"] = {"search_round_s": search_s, "train_round_s": train_s,
                                    "genotype": out["genotype"],
                                    "search_final": out["history"][-1], "train_final": final}
-        print(f"[family] fednas arch_order {order} search rounds (C 8, 4 layers, 4 clients "
-              f"x 1 step of 16): {[round(t, 3) for t in search_s]} s ({card})")
+        print(f"[family] fednas arch_order {order} search rounds (C 8, 4 layers, "
+              f"{NAS_CLIENTS} clients x 1 step of 16): {[round(t, 3) for t in search_s]} s "
+              f"({card})")
         print(f"[family] fednas arch_order {order} train-stage rounds: "
               f"{[round(t, 3) for t in train_s]} s; test_acc {final['test_acc']:.4f} "
               f"({card})")
@@ -3239,12 +3412,14 @@ def _family_fednas(device, tmp, card, reference, controls):
     return r
 
 
-def phase_family(device: str = "cuda", controls: bool = False):
+def phase_family(device: str = "cuda", controls: bool = False, nas_reference=None):
     """The rest of the algorithm family through ``experiments.run.main``
     (``_family_splitnn``, ``_family_vfl``, ``_family_fednas``), in fp32 (TF32
     off) with the deterministic flags pinned, each held against a CPU run;
-    the CPU's float64 FedNAS round runs in a process of its own beside
-    FedNAS's ``run.main`` calls.
+    the CPU's float64 FedNAS round runs in a process of its own
+    (``nas_reference``: ``_start_nas_reference``'s process and output path,
+    started earlier by the caller; started here at the phase's start
+    without one).
     Neither kernel of the JAX package's Pallas paths is launched.
     ``controls`` adds the gates' planted-fault runs; ``device`` "cpu"
     rehearses the phase without a card."""
@@ -3255,15 +3430,16 @@ def phase_family(device: str = "cuda", controls: bool = False):
     t0 = time.perf_counter()
     reset_launches()
     with tempfile.TemporaryDirectory() as tmp, deterministic():
-        rec["splitnn"] = _family_splitnn(device, tmp, card, controls)
-        rec["vfl"] = _family_vfl(device, tmp, card)
-        out_path = os.path.join(tmp, "nas_reference.pkl")
-        proc = _start_nas_reference(out_path)
+        if nas_reference is None:
+            out_path = os.path.join(tmp, "nas_reference.pkl")
+            nas_reference = (_start_nas_reference(out_path), out_path)
         try:
-            rec["fednas"] = _family_fednas(device, tmp, card, (proc, out_path), controls)
+            rec["splitnn"] = _family_splitnn(device, tmp, card, controls)
+            rec["vfl"] = _family_vfl(device, tmp, card)
+            rec["fednas"] = _family_fednas(device, tmp, card, nas_reference, controls)
         finally:
-            proc.kill()
-            proc.wait()
+            nas_reference[0].kill()
+            nas_reference[0].wait()
     seen = read_launches()
     rec["launches"] = seen
     rec["phase_s"] = time.perf_counter() - t0
@@ -3284,7 +3460,9 @@ def phase_family(device: str = "cuda", controls: bool = False):
 # on the host against fp32 on the card); the last round, the simulation's
 # taken from the federation's previous global, at XD_FINAL_TOL (readings, and
 # why not at a one-ulp spread: PERF.md §6).
-XD_CLIENTS, XD_BATCH, XD_SAMPLES, XD_ROUNDS = 4, 64, 128, 3
+# (XD_ROUNDS cut from 3 to make room for [mesh]: round 0 and the last round,
+# round 1, are gated; the median round is round 1's)
+XD_CLIENTS, XD_BATCH, XD_SAMPLES, XD_ROUNDS = 4, 64, 128, 2
 XD_ROUND0_TOL, XD_FINAL_TOL = 1e-6, 1e-5
 XD_NORM_BOUND = 1.0  # the streaming defense's clip, far below a x10 upload
 # the qsgd8 + EF runs: round 0 sends the full model, round 1 the delta chain
@@ -3759,6 +3937,10 @@ def phase_xdevice(device: str = "cuda"):
 # distributed_fedavg's launch() as real processes on the card, flat and tree
 # side by side.
 TCP_MODES = [("reactor", "tcp"), ("reactor", "shm"), ("threaded", "tcp")]
+# the loopback federations and their in-process reference run 2 rounds (cut
+# from XD_ROUNDS to make room for [mesh]; the gates read round 0, the time
+# round 1)
+TCP_ROUNDS = 2
 TCP_SHM_MIB = 16  # each connection's slab: a few 2.42 MB frames in flight
 TCP_LAUNCH = dict(num_clients=3, rounds=2, seed=0, batch_size=16, lane="shm",
                   shm_mib=1, shm_min_bytes=0)  # every LR payload rides the lane
@@ -3796,7 +3978,7 @@ def _wire_totals(before: dict) -> dict:
             "sent_frames": total("comm.sent_msgs"), "sent_bytes": total("comm.sent_bytes")}
 
 
-def _tcp_run(p, device, *, label, card, hub_mode, lane, rounds=XD_ROUNDS, wrap_client=None):
+def _tcp_run(p, device, *, label, card, hub_mode, lane, rounds=TCP_ROUNDS, wrap_client=None):
     """One federation of the port's managers over the port's TcpHub: rounds
     of XD_CLIENTS clients; returns its server, round snapshots and the
     numbers [tcp] prints beside [xdevice]'s."""
@@ -3984,6 +4166,7 @@ def phase_tcp(device: str = "cuda"):
         p = _xd_problem(device)
         ref_frames, ref_snaps = {}, []
         _, _, r_in, _ = _xd_run(p, device, label="in-process reference for [tcp]", card=card,
+                                rounds=TCP_ROUNDS,
                                 wrap_server=lambda s: ref_snaps.append(_snapshots(s)),
                                 wrap_client=_upload_frames(ref_frames))
         launches += r_in["launches"]
@@ -4119,12 +4302,262 @@ def phase_tcp(device: str = "cuda"):
           f"({tc} tensor-core) ({card})")
     return rec
 
+# [mesh]: FedAvg over a clients mesh (fedml_tpu_torch/parallel/): the main
+# path's round on a 1-rank NCCL mesh (NCCL refuses two ranks on one card),
+# ResNet-56 at full width on the conv kernel, bf16, [main]'s optimizer,
+# MESH_CLIENTS clients x 2 steps of MESH_BATCH, against make_round_fn from the
+# same state and block, byte for byte; the two-tier round on a 1 x 1
+# (group, clients) mesh and the compiled template round against their host
+# forms; then MESH_RANKS gloo ranks sharing the card run the small-model
+# cases of parallel/dryrun.py (a dp round within MESH_ULPS float32 spacings of
+# its one-device round, as tests/test_torch_spmd.py; the gossip's dense SPMD
+# form against the dense round).  gloo takes card tensors for all_reduce,
+# broadcast and all_gather but not for point-to-point ops (its send writes
+# the device pointer to a socket and the rank aborts; PERF.md §6), so the
+# ppermute ring is checked across ranks on the CPU only
+# (tests/test_torch_spmd_gossip.py)
+MESH_CLIENTS, MESH_BATCH, MESH_SAMPLES, MESH_GROUP_ROUNDS = 4, 64, 128, 2
+MESH_RANKS, MESH_ULPS, MESH_TIER_TOL, MESH_GOSSIP_TOL = 2, 8, 1e-6, 1e-5
+MESH_LR = dict(data=dict(num_train=600, num_test=100, input_shape=(12,), num_classes=4,
+                         num_clients=2 * MESH_RANKS, partition="hetero",
+                         partition_alpha=0.5, seed=0),
+               model=("lr", 12, 4), opt=dict(name="sgd", lr=0.2), epochs=2, batch=16)
+MESH_GOSSIP = dict(data=dict(num_train=MESH_RANKS * 50, num_test=16, input_shape=(8,),
+                             num_classes=2, num_clients=MESH_RANKS, partition="homo",
+                             seed=0),
+                   model=("lr", 8, 2), opt=dict(name="sgd", lr=0.1), epochs=1, batch=16,
+                   init_key=0, rng_key=1, ring=False, reference=True)
+
+
+def _ulp_gap(got: dict, want: dict) -> float:
+    """The largest |Δ| of any leaf in float32 spacings of that leaf's
+    largest magnitude (numpy trees)."""
+    import numpy as np
+
+    worst = 0.0
+    for c in want:
+        for k, w in want[c].items():
+            w = np.asarray(w, np.float32)
+            ulp = np.spacing(np.float32(max(np.abs(w).max(), np.finfo(np.float32).tiny)))
+            worst = max(worst, float(np.abs(np.asarray(got[c][k], np.float32) - w).max() / ulp))
+    return worst
+
+
+def phase_mesh(device: str = "cuda"):
+    """FedAvg over a clients mesh of the port (``parallel/``) on the card.
+
+    1. the main path on a 1-rank NCCL ``(clients, model)`` mesh: one round
+       of ``make_spmd_round_fn`` over ResNet-56 (full width, every 3x3 conv
+       on the kernel, bf16, SGD lr 1e-3 momentum 0.9 wd 1e-3), 4 clients x 2
+       steps of 64, equal byte for byte to ``make_round_fn`` on the card from
+       the same state and block (cuDNN deterministic); 19 conv launches per
+       client forward, 18 tensor-core; ``describe_mesh`` reads ``cuda``; the
+       two rounds timed in turns;
+    2. the two-tier round on a 1 x 1 ``(group, clients)`` mesh against
+       ``HierarchicalSimulation.run_round`` (2 in-group rounds, the same
+       model), within MESH_TIER_TOL of each leaf's scale; the compiled
+       template round against ``run_base_framework``;
+    3. MESH_RANKS ranks in one gloo group, every tensor on the card: the dp
+       round of a logistic regression over 4 clients against its one-device
+       round (rank 0), within MESH_ULPS float32 spacings, every rank holding
+       the same bytes; the gossip's dense SPMD form (``all_gather`` and the
+       rank's row of the ring matrix) against the dense round within
+       MESH_GOSSIP_TOL; the ranks' start-up seconds.
+
+    ``device`` "cpu" rehearses the phase on gloo (launch counts are 0)."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.base_framework import (make_compiled_round,
+                                                           run_base_framework)
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig, ServerState, make_round_fn
+    from fedml_tpu_torch.algorithms.hierarchical import HierarchicalSimulation
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.core.types import cohort_steps_per_epoch, pack_clients
+    from fedml_tpu_torch.data.cifar import load_cifar10
+    from fedml_tpu_torch.experiments.registry import shrink_dataset
+    from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+    from fedml_tpu_torch.parallel.compat import launch, single_rank_group
+    from fedml_tpu_torch.parallel.dryrun import run_cases
+    from fedml_tpu_torch.parallel.mesh import describe_mesh
+    from fedml_tpu_torch.parallel.spmd import (hierarchical_pack, make_1d_mesh,
+                                               make_client_mesh, make_group_mesh,
+                                               make_hierarchical_spmd_round_fn,
+                                               make_spmd_round_fn, replicate,
+                                               shard_client_block)
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    ds = shrink_dataset(load_cifar10(num_clients=MESH_CLIENTS, partition="hetero",
+                                     partition_alpha=0.5, seed=0), MESH_SAMPLES, 64)
+    bundle = resnet56_tpu(conv_variant="kernel", device=device)
+    opt = make_client_optimizer("sgd", 0.001, momentum=0.9, weight_decay=1e-3)
+    lu = make_local_update(bundle, opt, epochs=1, compute_dtype=torch.bfloat16)
+    steps = cohort_steps_per_epoch(ds, MESH_BATCH)
+    pack = pack_clients(ds, list(range(MESH_CLIENTS)), MESH_BATCH, steps_per_epoch=steps,
+                        seed=0)
+    raw = (pack.x, pack.y, pack.mask, pack.num_samples,
+           np.ones(MESH_CLIENTS, np.float32), np.arange(MESH_CLIENTS, dtype=np.int32))
+    key = PRNGKey(0)
+    fwd = MESH_CLIENTS * steps
+    launches = tc = 0
+    with deterministic(), single_rank_group(device):
+        mesh = make_client_mesh(device=device)
+        rec["mesh"] = describe_mesh(mesh)
+        print(f"[mesh] describe_mesh: {json.dumps(rec['mesh'])} ({card})")
+        if rec["mesh"]["platform"] != device:
+            fail(f"mesh: the clients mesh is on {rec['mesh']['platform']}, not {device}")
+        block = shard_client_block(mesh, raw)
+        state0 = replicate(mesh, ServerState(bundle.init(key), (), 0, key))
+        spmd = make_spmd_round_fn(mesh, lu)
+        plain = make_round_fn(lu, device=device)
+        plain(state0, *block)  # warm-up
+        sync()
+        times = {"spmd": [], "plain": []}
+        out = {}
+        for turn, name in enumerate(("spmd", "plain", "plain", "spmd")):
+            fn = spmd if name == "spmd" else plain
+            if turn == 0:
+                reset_launches()
+            t0 = time.perf_counter()
+            state, metrics = fn(state0, *block)
+            sync()
+            times[name].append(time.perf_counter() - t0)
+            if turn == 0:
+                seen = read_launches()
+                launches, tc = seen["conv3x3_mxu"], seen["conv3x3_mxu_tc"]
+            out.setdefault(name, (state, metrics))
+        (got, gm), (want, wm) = out["spmd"], out["plain"]
+        same = _same_tensors(got.variables, want.variables) and _same_tensors(gm, wm)
+        loss = float(gm["loss_sum"]) / max(float(gm["count"]), 1.0)
+        rec.update(spmd_round_s=times["spmd"], plain_round_s=times["plain"],
+                   bytewise_equal=same, loss=loss, launches=launches, tc_launches=tc)
+        print(f"[mesh] resnet56_tpu (kernel convs, bf16) on a 1-rank {device} clients mesh, "
+              f"{MESH_CLIENTS} clients x {steps} steps of {MESH_BATCH}: spmd round s "
+              f"{[round(t, 4) for t in times['spmd']]}, make_round_fn round s "
+              f"{[round(t, 4) for t in times['plain']]} (in turns spmd, plain, plain, spmd; "
+              f"median ratio {np.median(times['spmd']) / np.median(times['plain']):.3f}); "
+              f"loss {loss:.4f}; equal byte for byte {same}; conv3x3_mxu launches "
+              f"{launches} ({tc} tensor-core) for {fwd} forwards ({card})")
+        if not same:
+            fail("mesh: the 1-rank SPMD round is not make_round_fn's byte for byte")
+        if not math.isfinite(loss):
+            fail(f"mesh: non-finite loss {loss}")
+        if device == "cuda" and (launches != 19 * fwd or tc != TC_PER_FORWARD * fwd):
+            fail(f"mesh: conv launches {launches} ({tc} tensor-core), expected "
+                 f"{19 * fwd} ({TC_PER_FORWARD * fwd})")
+
+        cfg = FedAvgConfig(num_clients=MESH_CLIENTS, clients_per_round=MESH_CLIENTS,
+                           comm_rounds=1, epochs=1, batch_size=MESH_BATCH, lr=0.001,
+                           momentum=0.9, weight_decay=1e-3, seed=0, compute_dtype="bf16")
+        sim = HierarchicalSimulation(bundle, ds, cfg, num_groups=1,
+                                     group_comm_round=MESH_GROUP_ROUNDS, local_update=lu,
+                                     device=device)
+        gmesh = make_group_mesh(1, device=device)
+        hblock, hids = hierarchical_pack(ds, sim.groups, MESH_BATCH, sim.steps_per_epoch,
+                                         sim.cfg.seed)
+        hargs = shard_client_block(gmesh, (*hblock, np.ones(len(hids), np.float32),
+                                           np.asarray(hids, np.int32)), ("group", "clients"))
+        hier = make_hierarchical_spmd_round_fn(gmesh, lu, group_comm_round=MESH_GROUP_ROUNDS)
+        reset_launches()
+        t0 = time.perf_counter()
+        hstate, hm = hier(replicate(gmesh, sim.state), *hargs)
+        sync()
+        hier_s = time.perf_counter() - t0
+        seen = read_launches()
+        launches += seen["conv3x3_mxu"]
+        tc += seen["conv3x3_mxu_tc"]
+        t0 = time.perf_counter()
+        host = sim.run_round()
+        sync()
+        host_s = time.perf_counter() - t0
+        gap, leaf = _host_gap(hstate.variables, sim.state.variables)
+        hfwd = MESH_GROUP_ROUNDS * fwd
+        print(f"[mesh] two-tier round on a 1 x 1 (group, clients) mesh, {MESH_GROUP_ROUNDS} "
+              f"in-group rounds: {hier_s:.3f} s vs HierarchicalSimulation.run_round "
+              f"{host_s:.3f} s; max |Δ| / max(1, max |leaf|) {gap:.3g} ({leaf}; gate "
+              f"{MESH_TIER_TOL}); count {float(hm['count'])} vs {host['count']}; conv3x3_mxu "
+              f"launches {seen['conv3x3_mxu']} ({seen['conv3x3_mxu_tc']} tensor-core) for "
+              f"{hfwd} forwards ({card})")
+        if gap > MESH_TIER_TOL or float(hm["count"]) != host["count"]:
+            fail(f"mesh: the two-tier SPMD round is {gap:.3g} from the host simulation's")
+        if device == "cuda" and (seen["conv3x3_mxu"] != 19 * hfwd
+                                 or seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * hfwd):
+            fail(f"mesh: two-tier conv launches {seen}, expected {19 * hfwd}")
+        history = make_compiled_round(make_1d_mesh(axis="clients", device=device))(8, 4)
+        series = run_base_framework(8, 4)
+        print(f"[mesh] compiled template round (8 clients, 4 rounds) on the 1-rank mesh: "
+              f"{history.tolist()} vs the message form {series} ({card})")
+        if not np.allclose(history, series, rtol=1e-6):
+            fail("mesh: the compiled template round disagrees with the message form")
+        rec.update(hier_s=hier_s, host_hier_s=host_s, hier_gap=gap,
+                   compiled=history.tolist())
+
+    # several ranks on the one card: one gloo group, every tensor on the card
+    cases = [("spmd", {**MESH_LR, "device": device, "single": True}),
+             ("gossip", {**MESH_GOSSIP, "device": device})]
+    t0 = time.perf_counter()
+    ranks = launch(run_cases, MESH_RANKS, cases, device=device, backend="gloo",
+                   timeout=300.0)
+    wall = time.perf_counter() - t0
+    body = max(sum(case["seconds"] for case in r) for r in ranks)
+    dp_ulps = max(_ulp_gap(r[0]["variables"], ranks[0][0]["single"]["variables"])
+                  for r in ranks)
+    replicated = all(_ulp_gap(r[0]["variables"], ranks[0][0]["variables"]) == 0.0
+                     for r in ranks)
+    gossip_gap = max(
+        float(np.abs(np.asarray(r[1]["variables"][c][k])
+                     - np.asarray(ranks[0][1]["reference"][c][k])[i]).max())
+        for i, r in enumerate(ranks) for c in r[1]["variables"] for k in r[1]["variables"][c])
+    rec.update(ranks=MESH_RANKS, launch_s=wall, rank_body_s=body, startup_s=wall - body,
+               dp_ulps=dp_ulps, gossip_gap=gossip_gap)
+    print(f"[mesh] {MESH_RANKS} gloo ranks on {device} ({ranks[0][0]['mesh']['platform']} "
+          f"mesh): launch {wall:.2f} s, the ranks' own work {body:.2f} s, start-up and "
+          f"teardown {wall - body:.2f} s; dp round of lr over {2 * MESH_RANKS} clients vs "
+          f"its one-device "
+          f"round {dp_ulps:.3g} float32 spacings (gate {MESH_ULPS}), every rank the same "
+          f"bytes {replicated}; gossip dense SPMD form vs the dense round max |Δ| "
+          f"{gossip_gap:.3g} "
+          f"(gate {MESH_GOSSIP_TOL}) ({card})")
+    if dp_ulps > MESH_ULPS or not replicated:
+        fail("mesh: the multi-rank dp round disagrees with its one-device round")
+    if gossip_gap > MESH_GOSSIP_TOL:
+        fail("mesh: the multi-rank gossip disagrees with the dense round")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mesh] phase time: {rec['phase_s']:.1f} s; conv3x3_mxu launches {launches} "
+          f"({tc} tensor-core) ({card})")
+    rec.update(launches=launches, tc_launches=tc)
+    return rec
+
+
+PHASES = ["build", "kernels", "check", "main", "fedllm", "rng", "north_star", "sim",
+          "init", "compress", "pack", "zoo", "silo", "algos", "standalone", "family",
+          "imagenet", "comm", "xdevice", "tcp", "mesh"]
+# the phases whose ResNet-56 client forwards the kernels line's conv count sums
+CONV_PHASES = ["main", "north_star", "sim", "compress", "silo", "algos", "standalone",
+               "imagenet", "xdevice", "tcp", "mesh"]
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--out", help="write every per-case number here as JSON")
     parser.add_argument("--profile", action="store_true",
                         help="also trace one main-path round with torch.profiler")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma list of the phases to run, in the script's order "
+                             "(default: every phase); the kernels line needs 'kernels'")
     args = parser.parse_args()
+    selected = [p.strip() for p in args.phases.split(",") if p.strip()]
+    unknown = sorted(set(selected) - set(PHASES))
+    if unknown:
+        parser.error(f"unknown phases {unknown}; known: {','.join(PHASES)}")
 
     import torch
 
@@ -4134,31 +4567,78 @@ def main() -> int:
         return 1
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    import tempfile
 
-    build_s = phase_build()
-    cases = phase_kernels()
-    cases_224 = phase_kernels(CONV_SHAPES_224, N_224, [("bf16", True, False)])
-    flash_cases = phase_flash_kernels()
-    phase_check()
-    phase_flash_check()
-    main_rec = phase_main(args.profile)
-    fedllm_rec = phase_fedllm(args.profile)
-    rng_rec = phase_rng()
-    north_rec = phase_north_star(args.profile)
-    sim_rec = phase_sim(north_rec["step_ms"])
-    init_rec = phase_init()
-    compress_rec = phase_compress()
-    pack_rec = phase_pack()
-    zoo_rec = phase_zoo(args.profile)
-    silo_rec = phase_silo(args.profile)
-    algos_rec = phase_algos()
-    standalone_rec = phase_standalone()
-    family_rec = phase_family()
-    imagenet_rec = phase_imagenet()
-    comm_rec = phase_comm()
-    xdevice_rec = phase_xdevice()
-    tcp_rec = phase_tcp()
+    smi = smi_line()
+    recs: dict = {}
+    seconds: dict = {}
 
+    def run(name, fn):
+        if name not in selected:
+            return
+        t0 = time.perf_counter()
+        recs[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+        print(f"[{name}] phase seconds: {seconds[name]:.1f} ({smi})")
+
+    with contextlib.ExitStack() as stack:
+        run("build", phase_build)
+        run("kernels", lambda: (phase_kernels(),
+                                phase_kernels(CONV_SHAPES_224, N_224, [("bf16", True, False)]),
+                                phase_flash_kernels()))
+        run("check", lambda: (phase_check(), phase_flash_check()))
+        run("main", lambda: phase_main(args.profile))
+        run("fedllm", lambda: phase_fedllm(args.profile))
+        run("rng", phase_rng)
+        run("north_star", lambda: phase_north_star(args.profile))
+        run("sim", lambda: phase_sim(recs["north_star"]["step_ms"] if "north_star" in recs
+                                     else None))
+        run("init", phase_init)
+        run("compress", phase_compress)
+        run("pack", phase_pack)
+        run("zoo", lambda: phase_zoo(args.profile))
+        run("silo", lambda: phase_silo(args.profile))
+        nas_reference = None
+        if "family" in selected:
+            # [family]'s CPU float64 FedNAS round starts here, beside [algos] and
+            # [standalone], so that [family] need not wait for it
+            nas_dir = stack.enter_context(tempfile.TemporaryDirectory())
+            out_path = os.path.join(nas_dir, "nas_reference.pkl")
+            nas_reference = (_start_nas_reference(out_path), out_path)
+            stack.callback(nas_reference[0].kill)
+        run("algos", phase_algos)
+        run("standalone", phase_standalone)
+        run("family", lambda: phase_family(nas_reference=nas_reference))
+        run("imagenet", phase_imagenet)
+        run("comm", phase_comm)
+        run("xdevice", phase_xdevice)
+        run("tcp", phase_tcp)
+        run("mesh", phase_mesh)
+    total = sum(seconds.values())
+    print(f"[phases] {total:.1f} s over {len(seconds)} phases: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + f" ({smi})")
+
+    kernels = kernels_record(recs) if "kernels" in recs else None
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump({"gpu": smi, "phase_seconds": seconds, "kernels": kernels,
+                       **{k: v for k, v in recs.items() if k not in ("kernels", "check")},
+                       **({"cases": recs["kernels"][0], "cases_224": recs["kernels"][1],
+                           "flash_cases": recs["kernels"][2]} if "kernels" in recs else {})},
+                      f, indent=1, default=str)
+    print(smi)
+    if kernels is not None:
+        print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def kernels_record(recs: dict) -> list:
+    """The kernels line: each kernel's checks and times from [kernels], its
+    launches summed over the main-path phases that ran."""
+    cases, cases_224, flash_cases = recs["kernels"]
     # the kernel's row: summed over the 19 convs of one training forward
     # (bf16, moments), the main path's configuration
     train = [c for c in cases if c["dtype"] == "bf16" and c["moments"]]
@@ -4171,11 +4651,7 @@ def main() -> int:
         "route": "cuda",
         "source": "fedml_tpu_torch/ops/csrc/conv_mxu.cu",
         "replaces": "fedml_tpu/ops/conv_mxu.py:72",
-        "launches": (main_rec["launches"] + north_rec["launches"] + sim_rec["launches"]
-                     + compress_rec["launches"] + silo_rec["launches"]
-                     + algos_rec["launches"] + standalone_rec["launches"]
-                     + imagenet_rec["launches"] + xdevice_rec["launches"]
-                     + tcp_rec["launches"]),
+        "launches": sum(recs[p]["launches"] for p in CONV_PHASES if p in recs),
         "max_abs_err": max(c["max_abs_err"] for c in train),
         "ms": per_forward("ms"),
         "plain_ms": per_forward("plain_ms"),
@@ -4185,7 +4661,7 @@ def main() -> int:
         "library_ms": per_forward("library_ms"),
         # the same forward at the ImageNet loaders' 224 px (N_224 images)
         "at_224px": {
-            "n": N_224, "launches": imagenet_rec["launches"],
+            "n": N_224, "launches": recs.get("imagenet", {}).get("launches", 0),
             "max_abs_err": max(c["max_abs_err"] for c in cases_224),
             **{k: per_forward(k, cases_224)
                for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
@@ -4200,8 +4676,8 @@ def main() -> int:
         "route": "cuda",
         "source": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "fedml_tpu/ops/flash_attention.py:35",
-        "launches": fedllm_rec["flash_launches"],
-        "wgmma_launches": fedllm_rec["flash_wgmma_launches"],
+        "launches": recs.get("fedllm", {}).get("flash_launches", 0),
+        "wgmma_launches": recs.get("fedllm", {}).get("flash_wgmma_launches", 0),
         "max_abs_err": bench["max_abs_err"],
         "ms": BENCH_LAYERS * bench["ms"],
         "plain_ms": BENCH_LAYERS * bench["plain_ms"],
@@ -4209,25 +4685,7 @@ def main() -> int:
         "bound_by": "bytes" if bench["bytes_ms"] >= bench["ops_ms"] else "operations",
         "library_ms": BENCH_LAYERS * bench["library_ms"],
     })
-    smi = smi_line()
-    if args.out:
-        with open(args.out, "w") as f:
-            json.dump({"gpu": smi, "build_s": build_s, "cases": cases,
-                       "flash_cases": flash_cases, "main": main_rec,
-                       "fedllm": fedllm_rec, "rng": rng_rec, "north_star": north_rec,
-                       "sim": sim_rec, "init": init_rec, "compress": compress_rec,
-                       "pack": pack_rec, "zoo": zoo_rec, "silo": silo_rec,
-                       "algos": algos_rec,
-                       "standalone": standalone_rec, "family": family_rec,
-                       "cases_224": cases_224, "imagenet": imagenet_rec,
-                       "comm": comm_rec, "xdevice": xdevice_rec, "tcp": tcp_rec,
-                       "kernels": kernels}, f, indent=1)
-    print(smi)
-    print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
-    return 0
+    return kernels
 
 
 if __name__ == "__main__":

@@ -5,17 +5,24 @@ Reference ``fedml_api/distributed/base_framework/``: ``algorithm_api.py:
 16-39`` forks process roles, ``central_worker.py:4-32`` collects one
 scalar "local result" per client and sums them, ``central_manager.py:
 8-53`` runs the INIT → collect → aggregate → broadcast round loop over
-MPI.  Here ``BaseCentralManager`` / ``BaseClientManager`` run that
-choreography over any ``CommBackend`` (a FINISH message instead of the
-MPI ``Abort()`` shutdown), and ``run_base_framework`` drives it on the
-in-process bus.  The JAX package's compiled form (one ``shard_map`` /
-``psum`` over a clients mesh axis) waits for the parallel engines:
-``make_compiled_round`` raises, naming the ROADMAP item.
+MPI.  The template comes in both forms:
+
+- **message form** — ``BaseCentralManager`` / ``BaseClientManager`` run
+  that choreography over any ``CommBackend`` (a FINISH message instead of
+  the MPI ``Abort()`` shutdown); ``run_base_framework`` drives it on the
+  in-process bus.
+- **collective form** — ``make_compiled_round``: the same round as one
+  ``psum`` over a clients mesh axis (``parallel/``), every rank computing
+  its shard of the clients: what the message choreography becomes when
+  every participant is a device of the mesh.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, List
+
+import numpy as np
+import torch
 
 from fedml_tpu_torch.comm.backend import CommBackend, NodeManager
 from fedml_tpu_torch.comm.inproc import InprocBus
@@ -25,6 +32,7 @@ from fedml_tpu_torch.comm.message import (
     MSG_TYPE_S2C_INIT_CONFIG,
     Message,
 )
+from fedml_tpu_torch.parallel.compat import axis_index, axis_size, mesh_device, psum, use_mesh
 
 SERVER = 0
 
@@ -178,9 +186,34 @@ def run_base_framework(
 
 
 def make_compiled_round(mesh, local_compute=None, axis: str = "clients"):
-    """The template round as one collective over a clients mesh axis (the
-    JAX package's ``shard_map``/``psum`` form): not ported yet."""
-    raise NotImplementedError(
-        "base_framework's compiled form (a psum over a clients mesh axis) is "
-        "not ported to fedml_tpu_torch yet (ROADMAP.md, queue A item 6: the "
-        "parallel engines)")
+    """The SAME template round as one collective: each rank computes its
+    shard of the clients' local results and a ``psum`` over the mesh axis
+    replaces collect + aggregate + broadcast.
+
+    ``local_compute(client_ids, round_idx, global_result)`` maps this
+    rank's float32 tensor of client ids to their local results; it
+    defaults to ``default_local_compute``, whose arithmetic works on
+    tensors as written.  Returns ``run(num_clients, comm_rounds)``, to be
+    called on every rank of ``mesh``: the float32 history of the global
+    result, the same on every rank."""
+    if local_compute is None:
+        local_compute = default_local_compute
+
+    def run(num_clients: int, comm_rounds: int) -> np.ndarray:
+        with use_mesh(mesh):
+            n, me = axis_size(axis), axis_index(axis)
+            if num_clients % n:
+                raise ValueError(f"{num_clients} clients not divisible by the "
+                                 f"{axis!r} axis of {n}")
+            block = num_clients // n
+            dev = mesh_device(mesh)
+            cids = torch.arange(me * block, (me + 1) * block, dtype=torch.float32,
+                                device=dev)
+            g = torch.zeros((), dtype=torch.float32, device=dev)
+            history = []
+            for r in range(comm_rounds):
+                g = psum(local_compute(cids, r, g).sum(), axis)
+                history.append(g)
+            return torch.stack(history).cpu().numpy()
+
+    return run

@@ -12,9 +12,10 @@ aggregates what its in-neighbours sent.  One gossip round here is
 over variables stacked on a leading client axis.  The clients train one
 after another (the JAX package's ``lax.map``), client i under the key
 ``fold_in(fold_in(key, round), slot_i)``; the mix is one einsum per leaf
-in float32, ``batch_stats`` included, cast back.  The SPMD forms (one
-client per device: ``ppermute`` on a ring, ``all_gather`` otherwise)
-wait for the multi-device engines (ROADMAP queue A item 6).
+in float32, ``batch_stats`` included, cast back.  The SPMD forms hold one
+client per rank of a mesh axis (``parallel/``): the ring mixes with two
+``ppermute`` shifts (``ring_mix``), any other matrix through an
+``all_gather`` and the rank's row of W.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from fedml_tpu_torch.core.types import (FedDataset, batch_eval_pack,
                                         cohort_steps_per_epoch, device_resident_pack,
                                         to_device)
 from fedml_tpu_torch.models.base import ModelBundle
+from fedml_tpu_torch.parallel.compat import all_gather, axis_index, axis_size, ppermute
 from fedml_tpu_torch.utils.device import DeviceLike, driver_device
 
 Tree = Any
@@ -45,32 +47,64 @@ def dense_mix(stacked_vars: Tree, w: torch.Tensor) -> Tree:
         stacked_vars)
 
 
+def ring_mix(local_vars: Tree, axis_name: str, w_self=1 / 3, w_left=1 / 3,
+             w_right=1 / 3) -> Tree:
+    """Ring mixing via two ``ppermute`` shifts over a mesh axis (one client
+    per rank), in float32, cast back."""
+    n = axis_size(axis_name)
+    left = [(i, (i + 1) % n) for i in range(n)]
+    right = [(i, (i - 1) % n) for i in range(n)]
+    f32 = treelib.tree_map(lambda leaf: leaf.float(), local_vars)
+    from_left = ppermute(f32, axis_name, left)
+    from_right = ppermute(f32, axis_name, right)
+    return treelib.tree_map(
+        lambda leaf, a, b: (w_self * leaf.float() + w_left * a + w_right * b).to(leaf.dtype),
+        local_vars, from_left, from_right)
+
+
 def make_gossip_round_fn(local_update, mixing_matrix: Optional[np.ndarray] = None, *,
                          axis_name: Optional[str] = None, ring: bool = False,
                          device: DeviceLike = None):
     """Round over stacked per-client variables [K, ...]:
-    ``round_fn(stacked_vars, x, y, mask, rng, slot_ids)`` with a dense
-    ``mixing_matrix``.  ``axis_name``/``ring`` (the SPMD forms) raise."""
-    if axis_name is not None or ring:
-        raise NotImplementedError(
-            "make_gossip_round_fn(axis_name=..., ring=...): the SPMD gossip "
-            "(ppermute/all_gather over a device mesh) is not ported to "
-            "fedml_tpu_torch yet (ROADMAP.md, queue A item 6: transformer and "
-            "parallel)")
-    if mixing_matrix is None:
-        raise ValueError("make_gossip_round_fn: a mixing_matrix is required")
-    w = torch.as_tensor(np.asarray(mixing_matrix, np.float32),
-                        device=driver_device(device))
+    ``round_fn(stacked_vars, x, y, mask, rng, slot_ids)``.
+
+    Simulation: the dense ``mixing_matrix`` einsum.  SPMD (``axis_name``
+    set, one client per rank, run inside ``compat.shard_map``):
+    ``ring=True`` mixes by ``ring_mix``; otherwise the dense matrix is
+    applied through ``all_gather`` and the rank's row (``axis_index``).
+    The metrics are this rank's sums."""
+    if mixing_matrix is None and not (axis_name and ring):
+        raise ValueError(
+            "make_gossip_round_fn: a mixing_matrix is required unless "
+            "using the SPMD ring path (axis_name=..., ring=True)"
+        )
+    dev = driver_device(device)
+    w = (None if mixing_matrix is None else
+         torch.as_tensor(np.asarray(mixing_matrix, np.float32), device=dev))
+
+    def mix(new_vars):
+        if axis_name is None:
+            return dense_mix(new_vars, w)
+        if next(iter(treelib.tree_leaves(new_vars))).shape[0] != 1:
+            raise ValueError("the SPMD gossip holds one client per rank")
+        if ring:
+            mixed = ring_mix(treelib.tree_index(new_vars, 0), axis_name)
+            return treelib.tree_map(lambda leaf: leaf[None], mixed)
+        gathered = all_gather(new_vars, axis_name, tiled=True)
+        row = w[axis_index(axis_name)]
+        return treelib.tree_map(
+            lambda g: torch.einsum("j,j...->...", row, g.float()).to(g.dtype)[None],
+            gathered)
 
     def round_fn(stacked_vars, x, y, mask, rng, slot_ids):
-        keys = rnglib.fold_in_many(rng, np.asarray(slot_ids))
+        keys = rnglib.fold_in_many(rng, np.asarray(torch.as_tensor(slot_ids).cpu()))
         outs, metrics = [], []
         for i in range(len(keys)):
             v, m = local_update(treelib.tree_index(stacked_vars, i),
                                 x[i], y[i], mask[i], keys[i])
             outs.append(v)
             metrics.append(m)
-        mixed = dense_mix(treelib.tree_stack(outs), w)
+        mixed = mix(treelib.tree_stack(outs))
         return mixed, {k: torch.stack([m[k] for m in metrics]).sum()
                        for k in metrics[0]}
 

@@ -64,6 +64,7 @@ from fedml_tpu_torch.core.types import (
 )
 from fedml_tpu_torch.models.base import ModelBundle, Variables
 from fedml_tpu_torch.obs.torch_hooks import instrument_signatures, record_device_memory
+from fedml_tpu_torch.parallel.compat import psum
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 # (old_variables, aggregated_variables, opt_state) -> (new_variables, opt_state)
@@ -145,12 +146,23 @@ def make_round_fn(
     row of ``state.residuals`` to ``delta`` first and keeps ``delta −
     decoded`` there for the next round, for participating clients only.
 
-    ``axis_name`` and ``aggregate_impl`` (the multi-device mesh,
-    pluggable aggregation) are not ported yet."""
-    for name, value in (("axis_name", axis_name),
-                        ("aggregate_impl", aggregate_impl)):
-        if value is not None:
-            raise NotImplementedError(f"make_round_fn({name}=...) is not ported yet")
+    ``aggregate_impl(weights, stacked_client_variables) -> num`` replaces
+    the weighted fold: the clients' variables are stacked on a leading K
+    axis and it returns the fp32 weighted sum.
+
+    With ``axis_name`` the block is this rank's share of a mesh axis
+    (``parallel/spmd.py``): ``num``, ``den``, ``participants`` and every
+    participation-weighted metric are ``psum``'d over that axis of the
+    bound mesh, so every rank ends the round with the same state.  The
+    clients' streams stay keyed by their global slot ids, whichever rank
+    holds them."""
+    if error_feedback and axis_name is not None:
+        raise ValueError(
+            "error_feedback is not defined under shard_map (axis_name="
+            f"{axis_name!r}): the residual store is gathered by GLOBAL "
+            "slot id, which a device-local block cannot index; compress "
+            "on the host path instead"
+        )
     if error_feedback and codec is None:
         raise ValueError("error_feedback needs a codec")
     dev = resolve_device(device)
@@ -192,22 +204,30 @@ def make_round_fn(
                     # a client that did not report keeps its residual
                     layout.set_row(residuals, slot,
                                    torch.where(participation[k] > 0, new, old))
-            if aggregate_transform is None:
+            if aggregate_transform is None and aggregate_impl is None:
                 num = treelib.tree_fold_weighted_f32(num, cvars, weights[k])
             else:
                 clients.append(cvars)
             for name, v in cm.items():
                 w = participation[k] * v
                 train_metrics[name] = train_metrics[name] + w if name in train_metrics else w
-        if aggregate_transform is not None:
-            k_agg = rnglib.fold_in(k_round, _AGG_STREAM)
-            keys = np.stack([rnglib.fold_in(k_agg, slot) for slot in ids])
-            stacked = treelib.tree_map(lambda *leaves: torch.stack(leaves), *clients)
-            stacked = aggregate_transform(state.variables, stacked, weights, keys)
-            for k in range(len(ids)):
-                num = treelib.tree_fold_weighted_f32(
-                    num, treelib.tree_map(lambda leaf: leaf[k], stacked), weights[k])
+        if clients:
+            stacked = treelib.tree_stack(clients)
+            if aggregate_transform is not None:
+                k_agg = rnglib.fold_in(k_round, _AGG_STREAM)
+                keys = np.stack([rnglib.fold_in(k_agg, slot) for slot in ids])
+                stacked = aggregate_transform(state.variables, stacked, weights, keys)
+            if aggregate_impl is not None:
+                num = aggregate_impl(weights, stacked)
+            else:
+                for k in range(len(ids)):
+                    num = treelib.tree_fold_weighted_f32(
+                        num, treelib.tree_index(stacked, k), weights[k])
         den = weights.sum()
+        n_participants = participation.sum()
+        if axis_name is not None:
+            num, den, n_participants, train_metrics = psum(
+                (num, den, n_participants, train_metrics), axis_name)
         # zero-participation guard: with den == 0 the weighted average is
         # undefined, so the round leaves the model untouched
         agg = treelib.tree_map(
@@ -215,16 +235,33 @@ def make_round_fn(
                 den > 0, (s / torch.clamp_min(den, 1e-12)).to(ref.dtype), ref),
             num, state.variables)
         new_vars, new_opt = server_update(state.variables, agg, state.opt_state)
-        train_metrics["participants"] = participation.sum()
+        train_metrics["participants"] = n_participants
         return ServerState(new_vars, new_opt, state.round_idx + 1, state.key,
                            residuals), train_metrics
 
+    # the mesh axis travels with the kernel, so a fused driver handed a
+    # pre-built SPMD kernel still refuses on-device sampling
+    round_fn.axis_name = axis_name
     return round_fn
 
 
-def _resolve_round_fn(local_update, round_fn, round_kw, device):
+def _resolve_round_fn(local_update, round_fn, round_kw, device,
+                      on_device_sampling: bool = False):
     """A pre-built round kernel (kernel-shaping kwargs must then be baked
-    into it), or a new ``make_round_fn`` kernel."""
+    into it), or a new ``make_round_fn`` kernel.
+
+    ``on_device_sampling`` marks a caller that draws each round's
+    participation mask itself (clients_per_round / drop_prob): under a
+    mesh axis each rank sees only its block, so such a draw would be
+    rank-local.  The axis is read from ``round_kw`` or from the tag
+    ``make_round_fn`` stamps on its kernels."""
+    baked_axis = round_kw.get("axis_name") or getattr(round_fn, "axis_name", None)
+    if on_device_sampling and baked_axis:
+        raise ValueError(
+            "on-device clients_per_round/drop_prob are not defined under "
+            f"shard_map (axis_name={baked_axis!r}: local block != global "
+            "client axis); pass per-round masks from the host instead"
+        )
     if round_fn is None:
         return make_round_fn(local_update, device=device, **round_kw)
     if round_kw:
@@ -258,7 +295,9 @@ def make_multi_round_fn(
         raise ValueError(
             f"clients_per_round must be >= 1, got {clients_per_round}")
     dev = resolve_device(device)
-    rf = _resolve_round_fn(local_update, round_fn, round_kw, dev)
+    rf = _resolve_round_fn(local_update, round_fn, round_kw, dev,
+                           on_device_sampling=clients_per_round is not None
+                           or bool(drop_prob))
 
     def multi_round_fn(state: ServerState, x, y, mask, num_samples,
                        participation, slot_ids):
@@ -295,7 +334,8 @@ def make_scheduled_multi_round_fn(
     PRNGKey(drop_seed), round, ...)``, so the rounds equal the dispatch
     loop's.  Returns ``(final_state, metrics)`` stacked ``[R]``."""
     dev = resolve_device(device)
-    rf = _resolve_round_fn(local_update, round_fn, round_kw, dev)
+    rf = _resolve_round_fn(local_update, round_fn, round_kw, dev,
+                           on_device_sampling=bool(drop_prob))
     drop_key = rnglib.PRNGKey(drop_seed)
 
     def scheduled_fn(state: ServerState, x, y, mask, num_samples,

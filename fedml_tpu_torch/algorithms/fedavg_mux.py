@@ -82,8 +82,8 @@ from fedml_tpu_torch.obs.telemetry import get_telemetry
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 MESH_REFUSAL = ("a muxer cohort on a device mesh (mesh=/partition_rules=) is "
-                "not ported to fedml_tpu_torch yet (ROADMAP.md, queue A item 6: "
-                "transformer and parallel)")
+                "not ported to fedml_tpu_torch yet (ROADMAP.md, queue A item 6c: "
+                "the rule-driven sharding engine)")
 
 
 class _VirtualEndpoint(NodeManager):

@@ -8,7 +8,7 @@ the host-side EF recurrence, which the cross-device client's uploads
 (``algorithms/fedavg_cross_device.py::encode_client_upload``) carry per
 uplink stream.  The sharded wire forms of
 ``fedml_tpu/compress/sharded.py`` belong to the parallel engines and are
-not ported yet (ROADMAP queue A item 6).
+not ported yet (ROADMAP queue A item 6c).
 """
 
 from fedml_tpu_torch.compress.codecs import (

@@ -161,6 +161,11 @@ def tree_detach(tree: Tree) -> Tree:
     return tree_map(torch.Tensor.detach, tree)
 
 
+def tree_size(tree: Tree) -> int:
+    """The number of elements over every leaf (tensors or arrays)."""
+    return sum(int(np.prod(np.shape(x))) for x in tree_leaves(tree))
+
+
 def tree_ravel(tree: Tree) -> torch.Tensor:
     """Every leaf cast to float32 and flattened into one vector, in
     ``tree_leaves`` order: the dict order (collection, then the module's

@@ -55,6 +55,47 @@ class FedDataset:
             dtype=np.int32,
         )
 
+    def subset_for_clients(self, client_ids: Sequence[int]) -> "FedDataset":
+        """A host-local view holding ONLY the named clients' rows.
+
+        The reference's distributed loaders materialize just the local
+        rank's partition (``cifar10/data_loader.py:201-233``); a mesh rank
+        calls ``subset_for_clients(host_client_range(...))`` and never
+        holds the other hosts' data.  Client keys KEEP their original ids
+        (only the row indices are compacted), so ``pack_clients`` on the
+        subset is byte for byte the pack of the same clients from the
+        full dataset (its per-client seeding is id-keyed).  Test rows are
+        kept whole when there is no per-client test split (every host
+        evaluates the global test set), and subset per client otherwise.
+        """
+        client_ids = list(client_ids)
+        missing = [c for c in client_ids if c not in self.train_client_idx]
+        if missing:
+            raise KeyError(f"clients not in dataset: {missing}")
+
+        def compact(index):
+            order = np.concatenate(
+                [np.asarray(index[c], np.int64) for c in client_ids]
+            ) if client_ids else np.zeros((0,), np.int64)
+            new_idx, off = {}, 0
+            for c in client_ids:
+                n = len(index[c])
+                new_idx[c] = np.arange(off, off + n)
+                off += n
+            return order, new_idx
+
+        order, new_idx = compact(self.train_client_idx)
+        if self.test_client_idx is None:
+            test_x, test_y, new_test_idx = self.test_x, self.test_y, None
+        else:
+            t_order, new_test_idx = compact(self.test_client_idx)
+            test_x, test_y = self.test_x[t_order], self.test_y[t_order]
+        return FedDataset(
+            train_x=self.train_x[order], train_y=self.train_y[order],
+            test_x=test_x, test_y=test_y, train_client_idx=new_idx,
+            test_client_idx=new_test_idx, num_classes=self.num_classes,
+            name=self.name)
+
 
 @dataclasses.dataclass
 class ClientBatches:

@@ -5,6 +5,9 @@
 
 import sys
 
+if __package__ in (None, ""):  # run as a script: _bootstrap fixes sys.path
+    import _bootstrap  # noqa: F401
+
 from fedml_tpu_torch.experiments.run import main
 
 if __name__ == "__main__":

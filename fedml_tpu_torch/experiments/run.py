@@ -240,7 +240,8 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
     """Fail before any work on a knob whose machinery is not ported."""
     if cfg.tp_degree > 1 or cfg.sp_degree > 1 or cfg.mesh or cfg.partition_rules:
         raise _not_ported("tp_degree/sp_degree/mesh (the multi-device engines)",
-                          "queue A item 6: transformer and parallel")
+                          "queue A item 6b-6c: sequence, tensor and rule-driven "
+                          "sharding")
     if (cfg.compress or cfg.compress_ef) and cfg.algorithm not in _RESUMABLE:
         # the JAX package ignores these flags outside the FedAvg engine
         # (ROADMAP queue C4); refusing beats training uncompressed silently

@@ -1,6 +1,15 @@
-"""The checked-in telemetry naming registry (copy of
-``fedml_tpu/obs/metric_schema.py``: one set of series names for both
-packages, so a digest or status file reads the same from either).
+"""The checked-in telemetry naming registry (``fedml_tpu/obs/
+metric_schema.py``'s names, so a digest or status file reads the same
+from either package, plus the series only the port's PyTorch hooks emit).
+
+The port's runtime hooks (``obs/torch_hooks.py``) emit
+``calls.new_signature`` / ``calls.new_signature_s`` and the
+``new_signature`` event where the JAX hooks emit ``jax.compiles`` /
+``jax.compile_s`` and ``compile`` (eager PyTorch compiles nothing; it
+counts calls under a new shape signature), and ``torch.device_mem_*``
+where they emit ``jax.device_mem_*``.  The JAX-only names stay registered
+(a mixed federation's digests carry both) and are listed in
+``JAX_ONLY``: the port never emits them.
 
 Every counter/gauge/histogram series and every telemetry-event kind the
 package emits is declared here, with its label set and one line of
@@ -84,6 +93,7 @@ COUNTERS = {
     "shard.cohort_fallbacks": "muxed cohorts trained on the unsharded path {reason=}",
     "jax.compiles": "jit compilations per instrumented fn {fn=}",
     "jax.backend_compile_events": "runtime jax.monitoring compile events {event=}",
+    "calls.new_signature": "calls under a new abstract signature per instrumented fn {fn=}",
 }
 
 # --- gauges (instantaneous, or cumulative with _total; gauge_set/max) --------
@@ -106,6 +116,8 @@ GAUGES = {
     "hub.open_fds": "descriptors the hub holds open (reactor: selector map size)",
     "jax.device_mem_bytes": "device memory in use {device=}",
     "jax.device_mem_peak_bytes": "high-water device memory {device=}",
+    "torch.device_mem_bytes": "CUDA allocator bytes allocated now {device=}",
+    "torch.device_mem_peak_bytes": "high-water CUDA allocator bytes {device=}",
     "digest.streams": "distinct digest source streams the rollup has seen",
     "clock.hub_offset_s": "estimated monotonic-clock offset to the hub {node=}",
     "clock.hub_rtt_s": "min round-trip of the clock-sync burst {node=}",
@@ -135,6 +147,7 @@ HISTOGRAMS = {
     "flight.dump_write_s": "atomic flight-bundle write (snapshot + json + replace)",
     "lock.wait_s": "CheckedLock acquire block time past the flight threshold {lock=}",
     "hub.loop_lag_s": "reactor event-loop batch service time (time away from select)",
+    "calls.new_signature_s": "wall time of calls under a new signature {fn=}",
 }
 
 # --- dynamic-name patterns ---------------------------------------------------
@@ -147,6 +160,7 @@ METRIC_PATTERNS = {
 # --- telemetry event kinds (Telemetry.event + MetricsLogger records) ---------
 EVENTS = {
     "compile": "one jit compilation {fn, signature, seconds}",
+    "new_signature": "first call under a new signature {fn, signature, n_signatures, seconds}",
     "trace": "profiler trace written {trace_dir}",
     "trace_rounds": "profiler round bracketing {trace_dir, per-round seconds}",
     "config": "the full experiment dataclass (MetricsLogger record)",
@@ -160,6 +174,15 @@ EVENTS = {
     "mux_members": "muxer membership {muxer, nodes} — timeline track grouping",
     "slo_violation": "one failed SLO objective {round, objective, observed, threshold}",
     "flight_dump": "flight-recorder bundle written {trigger, reason, round, path, write_s}",
+}
+
+# registered for the JAX package's digests; the port never emits these
+JAX_ONLY = {
+    "series": frozenset({
+        "jax.compiles", "jax.backend_compile_events", "jax.device_mem_bytes",
+        "jax.device_mem_peak_bytes", "jax.compile_s", "jax.backend_compile_s",
+    }),
+    "events": frozenset({"compile"}),
 }
 
 # flat view used by the linter and by tools that just need existence

@@ -1,0 +1,23 @@
+"""Multi-device execution of the port over ``torch.distributed``
+(counterpart of ``fedml_tpu/parallel``).
+
+JAX runs one program on N devices in one process (``shard_map`` with
+``lax.psum``/``ppermute``/``all_gather``/``axis_index``).  The port runs
+one process per mesh position, each the same Python, with collectives
+over the named dimensions of a ``DeviceMesh``: gloo across CPU processes,
+NCCL on the card.
+
+- ``compat.py`` — the collective surface every engine imports (``psum``,
+  ``axis_index``, ``axis_size``, ``ppermute``, ``all_gather``, the
+  ``shard_map`` counterpart that binds a mesh) and ``launch``, which
+  brings a mesh's ranks into being.
+- ``mesh.py`` — the ``--mesh dp,mp`` parser and the dp×mp mesh.
+- ``spmd.py`` — FedAvg over a ``clients`` mesh axis, its host-local data
+  assembly, and the two-tier round on a ``(group, clients)`` mesh.
+- ``dryrun.py`` — ``dryrun_multichip``, the multi-device check.
+
+Ring attention, sequence, tensor, pipeline and expert parallelism
+(``fedml_tpu/parallel/{ring_attention,sequence,dp_sp,tensor,gspmd,
+partition,pipeline,expert}.py``) are not ported yet (ROADMAP.md, queue A
+items 6b-6d).
+"""

@@ -5,7 +5,7 @@ for several worker counts and rounds (and the plain-Python series of
 ``tests/test_base_framework.py``), a custom local compute too; the
 central worker collects and resets; the managers run over the bus by
 hand; ``run.main --algorithm base_framework --device cpu`` runs, as does
-the entry shim; the compiled form refuses, naming queue A item 6."""
+the entry shim; the compiled form runs on a 1-rank mesh."""
 
 import pytest
 
@@ -67,8 +67,22 @@ def test_managers_over_the_bus_stop_every_node():
 
 
 def test_compiled_form_waits_for_the_parallel_engines():
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        bf.make_compiled_round(mesh=None)
+    """The compiled form runs (on 8 ranks against JAX's:
+    test_torch_spmd_gossip.py); here on a 1-rank mesh in process, against
+    JAX's compiled form on one device and the message form."""
+    import jax
+    import numpy as np
+    from jax.sharding import Mesh
+
+    from fedml_tpu_torch.parallel.compat import single_rank_group
+    from fedml_tpu_torch.parallel.spmd import make_1d_mesh
+
+    with single_rank_group("cpu"):
+        got = bf.make_compiled_round(make_1d_mesh(axis="clients", device="cpu"))(5, 4)
+    want = jbf.make_compiled_round(Mesh(np.array(jax.devices()[:1]), ("clients",)))(5, 4)
+    assert got.dtype == np.float32 and got.shape == (4,)
+    np.testing.assert_allclose(got, want, rtol=1e-6)
+    np.testing.assert_allclose(got, bf.run_base_framework(5, 4), rtol=1e-6)
 
 
 @pytest.mark.parametrize("argv,workers,rounds", [

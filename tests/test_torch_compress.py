@@ -330,8 +330,11 @@ def test_round_fn_codec_arguments():
     lu = make_local_update(bundle, make_client_optimizer(), 1)
     with pytest.raises(ValueError, match="needs a codec"):
         make_round_fn(lu, device="cpu", error_feedback=True)
-    with pytest.raises(NotImplementedError, match="axis_name"):
-        make_round_fn(lu, device="cpu", codec=tcomp.get_codec("int8"), axis_name="dp")
+    # under a mesh axis the codec runs, error feedback is refused (as in JAX)
+    make_round_fn(lu, device="cpu", codec=tcomp.get_codec("int8"), axis_name="dp")
+    with pytest.raises(ValueError, match="axis_name"):
+        make_round_fn(lu, device="cpu", codec=tcomp.get_codec("int8"),
+                      error_feedback=True, axis_name="dp")
 
 
 def test_subclass_with_its_own_round_kernel_refuses_compression():

@@ -18,6 +18,7 @@ passed in).
 import json
 
 import pytest
+import torch
 
 import fedml_tpu.obs.digest as jdigest
 import fedml_tpu.obs.metric_schema as jschema
@@ -173,12 +174,62 @@ def test_hist_quantile_matches_jax(q):
     assert slo.hist_quantile(None, q) == jslo.hist_quantile(None, q)
 
 
+PORT_ONLY = {
+    "COUNTERS": {"calls.new_signature"},
+    "GAUGES": {"torch.device_mem_bytes", "torch.device_mem_peak_bytes"},
+    "HISTOGRAMS": {"calls.new_signature_s"},
+    "EVENTS": {"new_signature"},
+}
+
+
+def test_every_series_torch_hooks_emits_is_registered(monkeypatch, tmp_path):
+    """C9: each counter, gauge, histogram and event kind the port's hooks
+    emit (signatures, device memory on a faked card, traced rounds) is in
+    the port's schema with its type, and none of the JAX-only names."""
+    from fedml_tpu_torch.obs import torch_hooks
+
+    t = telemetry.Telemetry()
+    fn = torch_hooks.instrument_signatures(lambda x: x + 1, "round_fn", telemetry=t)
+    fn(torch.zeros(2))
+    fn(torch.zeros(3))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(torch.cuda, "memory_stats", lambda d: {
+        "allocated_bytes.all.peak": 10, "allocated_bytes.all.current": 4})
+    assert torch_hooks.record_device_memory(t)
+    monkeypatch.undo()
+    torch_hooks.trace_rounds(lambda s: (s, {"loss_sum": torch.zeros(())}), 0, (),
+                             rounds=1, log_dir=str(tmp_path), telemetry=t)
+    snap = t.snapshot()
+    emitted = {"counter": snap["counters"], "gauge": snap["gauges"],
+               "histogram": snap["hists"]}
+    seen = set()
+    for kind, series in emitted.items():
+        for key in series:
+            name = telemetry.parse_metric_key(key)[0]
+            assert metric_schema.metric_type(name) == kind, name
+            seen.add(name)
+    assert {"calls.new_signature", "calls.new_signature_s", "torch.device_mem_bytes",
+            "torch.device_mem_peak_bytes", "span.traced_round_s"} <= seen
+    kinds = {e["kind"] for e in t.drain_events()}
+    assert kinds == {"new_signature", "trace_rounds"} <= set(metric_schema.EVENTS)
+    assert not (seen | kinds) & (metric_schema.JAX_ONLY["series"]
+                                 | metric_schema.JAX_ONLY["events"])
+
+
 def test_metric_schema_is_jaxs():
-    for name in ("COUNTERS", "GAUGES", "HISTOGRAMS", "METRIC_PATTERNS", "EVENTS", "METRICS"):
-        assert getattr(metric_schema, name) == getattr(jschema, name), name
+    """Every JAX name with its type and meaning, plus the port's own
+    series (``PORT_ONLY``), which JAX's schema does not know."""
+    for name in ("COUNTERS", "GAUGES", "HISTOGRAMS", "EVENTS"):
+        port, ref = getattr(metric_schema, name), getattr(jschema, name)
+        assert {k: v for k, v in port.items() if k in ref} == ref, name
+        assert set(port) - set(ref) == PORT_ONLY[name], name
+    assert metric_schema.METRIC_PATTERNS == jschema.METRIC_PATTERNS
     for name in list(jschema.METRICS) + ["span.decode_s", "comm.sent_bytes", "nope.x",
                                          "chaos.whatever", "jax.compiles"]:
         assert metric_schema.metric_type(name) == jschema.metric_type(name)
+    assert metric_schema.JAX_ONLY["series"] <= set(jschema.METRICS)
+    assert metric_schema.JAX_ONLY["events"] <= set(jschema.EVENTS)
     assert digest.DIGEST_KEY == jdigest.DIGEST_KEY
     assert digest.DEFAULT_STALE_AFTER_S == jdigest.DEFAULT_STALE_AFTER_S
     assert slo.SloSpec().to_dict() == jslo.SloSpec().to_dict()

@@ -228,11 +228,45 @@ def test_decentralized_simulation_matches_jax(model):
 
 
 def test_gossip_spmd_forms_refused():
-    for kw in (dict(axis_name="clients"), dict(axis_name="clients", ring=True)):
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            make_gossip_round_fn(lambda *a: None, np.eye(2), device="cpu", **kw)
+    """The SPMD forms run (on 8 ranks against JAX: test_torch_spmd_gossip.py);
+    here on a 1-rank mesh in process: the ring mixes a client with itself
+    twice (w_self + w_left + w_right in float32), the dense form applies
+    its 1x1 matrix, and a matrix is still required off the ring."""
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.core.types import pack_clients
+    from fedml_tpu_torch.data.synthetic import synthetic_classification
+    from fedml_tpu_torch.parallel.compat import shard_map, single_rank_group
+    from fedml_tpu_torch.parallel.spmd import make_1d_mesh
+
+    ds = synthetic_classification(num_train=40, num_test=8, input_shape=(8,),
+                                  num_classes=2, num_clients=1, partition="homo", seed=0)
+    bundle = logistic_regression(8, 2, device="cpu")
+    lu = make_local_update(bundle, make_client_optimizer("sgd", 0.1), 1)
+    pack = pack_clients(ds, [0], batch_size=8)
+    args = [torch.from_numpy(a) for a in (pack.x, pack.y, pack.mask)]
+    stacked = {c: {k: v[None] for k, v in d.items()} for c, d in
+               bundle.init(PRNGKey(0)).items()}
+    trained, _ = make_gossip_round_fn(lu, np.eye(1), device="cpu")(
+        stacked, *args, PRNGKey(1), np.arange(1))
+    with single_rank_group("cpu"):
+        mesh = make_1d_mesh(axis="clients", device="cpu")
+        ring, rm = shard_map(make_gossip_round_fn(lu, None, axis_name="clients", ring=True,
+                                                  device="cpu"), mesh=mesh)(
+            stacked, *args, PRNGKey(1), np.arange(1))
+        dense, _ = shard_map(make_gossip_round_fn(lu, np.eye(1), axis_name="clients",
+                                                  device="cpu"), mesh=mesh)(
+            stacked, *args, PRNGKey(1), np.arange(1))
+    third = 1 / 3
+    for c in trained:
+        for k, t in trained[c].items():
+            assert torch.equal(dense[c][k], t)
+            assert torch.equal(ring[c][k], third * t + third * t + third * t)
+    assert float(rm["count"]) == 40.0
     with pytest.raises(ValueError, match="mixing_matrix"):
         make_gossip_round_fn(lambda *a: None, None, device="cpu")
+    with pytest.raises(ValueError, match="mixing_matrix"):
+        make_gossip_round_fn(lambda *a: None, None, axis_name="clients", device="cpu")
 
 
 @pytest.mark.parametrize("algo", ["dsgd", "pushsum"])
@@ -462,8 +496,8 @@ def test_run_main_fedgkt_two_server_epochs_tracks_float64(tmp_path, monkeypatch)
     (["--algorithm", "fednas", "--arch_order", "3"], (ValueError, "arch_order")),
     (["--algorithm", "splitnn", "--compress", "int8"], (NotImplementedError, "C4")),
     (["--algorithm", "vfl", "--checkpoint_every", "1"], (SystemExit, "no checkpoint wiring")),
-    # base_framework runs (tests/test_torch_base_framework.py); its compiled
-    # form, a psum over a clients mesh, waits for the parallel engines
+    # base_framework runs (tests/test_torch_base_framework.py); --mesh is the
+    # rule-driven sharding engine, which waits for queue A item 6c
     (["--algorithm", "base_framework", "--mesh", "dp,mp"],
      (NotImplementedError, "queue A item 6")),
     (["--algorithm", "fedgkt", "--conv_variant", "kernel"], (ValueError, "conv_variant")),
