@@ -259,7 +259,20 @@ Phases, in order; any failure exits non-zero:
              against the message form; then 2 gloo ranks sharing the card:
              a dp round within 8 float32 spacings of its one-device round
              and the gossip's dense SPMD form against the dense round, with
-             the ranks' start-up seconds.
+             the ranks' start-up seconds (in [sp]'s launch when [sp] runs).
+22. sp     — ring attention and sequence parallelism
+             (``fedml_tpu_torch/parallel/{ring_attention,sequence,dp_sp}.py``)
+             at the fedllm bench width, 2,048 tokens a sequence: one
+             ``make_dp_sp_round_fn`` round (flash ring, bf16, 1 client x 2
+             steps of 8) on a 1-rank NCCL (clients, sp) mesh, byte for byte
+             ``make_round_fn`` over the plain transformer and timed beside it
+             in turns, 12 flash launches per forward, all wgmma; then 2 gloo
+             ranks sharing the card (one launch with [mesh]'s), 1,024 tokens
+             a shard, the K/V ring staged through the host: the fp32
+             ``sequence_parallel_lm`` forward within 3e-4 of the 1-rank
+             forward, the bf16 round within 0.05 of part 1's update, every
+             rank the same bytes, and ``run.main --sp_degree 2``; per rank
+             the flash launches, the bytes staged and the seconds.
 
 ``--phases a,b,...`` runs only the named phases, in this order; every
 phase prints its seconds.
@@ -4312,10 +4325,10 @@ def phase_tcp(device: str = "cuda"):
 # cases of parallel/dryrun.py (a dp round within MESH_ULPS float32 spacings of
 # its one-device round, as tests/test_torch_spmd.py; the gossip's dense SPMD
 # form against the dense round).  gloo takes card tensors for all_reduce,
-# broadcast and all_gather but not for point-to-point ops (its send writes
-# the device pointer to a socket and the rank aborts; PERF.md §6), so the
-# ppermute ring is checked across ranks on the CPU only
-# (tests/test_torch_spmd_gossip.py)
+# broadcast and all_gather; its send/recv do not (they write the device
+# pointer to a socket and the rank aborts; PERF.md §6), so compat.ppermute
+# stages card buffers through host memory under gloo ([sp] runs the K/V ring
+# so)
 MESH_CLIENTS, MESH_BATCH, MESH_SAMPLES, MESH_GROUP_ROUNDS = 4, 64, 128, 2
 MESH_RANKS, MESH_ULPS, MESH_TIER_TOL, MESH_GOSSIP_TOL = 2, 8, 1e-6, 1e-5
 MESH_LR = dict(data=dict(num_train=600, num_test=100, input_shape=(12,), num_classes=4,
@@ -4343,7 +4356,45 @@ def _ulp_gap(got: dict, want: dict) -> float:
     return worst
 
 
-def phase_mesh(device: str = "cuda"):
+def mesh_rank_cases(device: str) -> list:
+    """[mesh]'s part 3: its cases for the gloo ranks sharing the card."""
+    return [("spmd", {**MESH_LR, "device": device, "single": True}),
+            ("gossip", {**MESH_GOSSIP, "device": device})]
+
+
+def check_mesh_ranks(ranks, wall: float, rec: dict, device: str, card: str,
+                     extra_s: float = 0.0) -> None:
+    """[mesh]'s part 3 gates over each rank's ``run_cases(mesh_rank_cases)``
+    results; ``extra_s`` is the ranks' other work in a shared launch."""
+    import numpy as np
+
+    body = max(sum(case["seconds"] for case in r) for r in ranks)
+    dp_ulps = max(_ulp_gap(r[0]["variables"], ranks[0][0]["single"]["variables"])
+                  for r in ranks)
+    replicated = all(_ulp_gap(r[0]["variables"], ranks[0][0]["variables"]) == 0.0
+                     for r in ranks)
+    gossip_gap = max(
+        float(np.abs(np.asarray(r[1]["variables"][c][k])
+                     - np.asarray(ranks[0][1]["reference"][c][k])[i]).max())
+        for i, r in enumerate(ranks) for c in r[1]["variables"] for k in r[1]["variables"][c])
+    startup = wall - body - extra_s
+    rec.update(ranks=MESH_RANKS, launch_s=wall, rank_body_s=body, startup_s=startup,
+               dp_ulps=dp_ulps, gossip_gap=gossip_gap)
+    print(f"[mesh] {MESH_RANKS} gloo ranks on {device} ({ranks[0][0]['mesh']['platform']} "
+          f"mesh): launch {wall:.2f} s, the ranks' own work {body:.2f} s (+ {extra_s:.2f} s "
+          f"of [sp]'s), start-up and teardown {startup:.2f} s; dp round of lr over "
+          f"{2 * MESH_RANKS} clients vs its one-device "
+          f"round {dp_ulps:.3g} float32 spacings (gate {MESH_ULPS}), every rank the same "
+          f"bytes {replicated}; gossip dense SPMD form vs the dense round max |Δ| "
+          f"{gossip_gap:.3g} "
+          f"(gate {MESH_GOSSIP_TOL}) ({card})")
+    if dp_ulps > MESH_ULPS or not replicated:
+        fail("mesh: the multi-rank dp round disagrees with its one-device round")
+    if gossip_gap > MESH_GOSSIP_TOL:
+        fail("mesh: the multi-rank gossip disagrees with the dense round")
+
+
+def phase_mesh(device: str = "cuda", launch_ranks: bool = True):
     """FedAvg over a clients mesh of the port (``parallel/``) on the card.
 
     1. the main path on a 1-rank NCCL ``(clients, model)`` mesh: one round
@@ -4362,7 +4413,9 @@ def phase_mesh(device: str = "cuda"):
        round (rank 0), within MESH_ULPS float32 spacings, every rank holding
        the same bytes; the gossip's dense SPMD form (``all_gather`` and the
        rank's row of the ring matrix) against the dense round within
-       MESH_GOSSIP_TOL; the ranks' start-up seconds.
+       MESH_GOSSIP_TOL; the ranks' start-up seconds.  With ``launch_ranks``
+       False these cases run in [sp]'s launch of the same ranks
+       (``phase_sp(mesh_rec=...)``), which pays one start-up for both.
 
     ``device`` "cpu" rehearses the phase on gloo (launch counts are 0)."""
     import numpy as np
@@ -4500,36 +4553,14 @@ def phase_mesh(device: str = "cuda"):
         rec.update(hier_s=hier_s, host_hier_s=host_s, hier_gap=gap,
                    compiled=history.tolist())
 
-    # several ranks on the one card: one gloo group, every tensor on the card
-    cases = [("spmd", {**MESH_LR, "device": device, "single": True}),
-             ("gossip", {**MESH_GOSSIP, "device": device})]
-    t0 = time.perf_counter()
-    ranks = launch(run_cases, MESH_RANKS, cases, device=device, backend="gloo",
-                   timeout=300.0)
-    wall = time.perf_counter() - t0
-    body = max(sum(case["seconds"] for case in r) for r in ranks)
-    dp_ulps = max(_ulp_gap(r[0]["variables"], ranks[0][0]["single"]["variables"])
-                  for r in ranks)
-    replicated = all(_ulp_gap(r[0]["variables"], ranks[0][0]["variables"]) == 0.0
-                     for r in ranks)
-    gossip_gap = max(
-        float(np.abs(np.asarray(r[1]["variables"][c][k])
-                     - np.asarray(ranks[0][1]["reference"][c][k])[i]).max())
-        for i, r in enumerate(ranks) for c in r[1]["variables"] for k in r[1]["variables"][c])
-    rec.update(ranks=MESH_RANKS, launch_s=wall, rank_body_s=body, startup_s=wall - body,
-               dp_ulps=dp_ulps, gossip_gap=gossip_gap)
-    print(f"[mesh] {MESH_RANKS} gloo ranks on {device} ({ranks[0][0]['mesh']['platform']} "
-          f"mesh): launch {wall:.2f} s, the ranks' own work {body:.2f} s, start-up and "
-          f"teardown {wall - body:.2f} s; dp round of lr over {2 * MESH_RANKS} clients vs "
-          f"its one-device "
-          f"round {dp_ulps:.3g} float32 spacings (gate {MESH_ULPS}), every rank the same "
-          f"bytes {replicated}; gossip dense SPMD form vs the dense round max |Δ| "
-          f"{gossip_gap:.3g} "
-          f"(gate {MESH_GOSSIP_TOL}) ({card})")
-    if dp_ulps > MESH_ULPS or not replicated:
-        fail("mesh: the multi-rank dp round disagrees with its one-device round")
-    if gossip_gap > MESH_GOSSIP_TOL:
-        fail("mesh: the multi-rank gossip disagrees with the dense round")
+    if launch_ranks:
+        # several ranks on the one card: one gloo group, every tensor on the card
+        t0 = time.perf_counter()
+        ranks = launch(run_cases, MESH_RANKS, mesh_rank_cases(device), device=device,
+                       backend="gloo", timeout=300.0)
+        check_mesh_ranks(ranks, time.perf_counter() - t0, rec, device, card)
+    else:
+        print(f"[mesh] the {MESH_RANKS} gloo ranks' cases run in [sp]'s launch ({card})")
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[mesh] phase time: {rec['phase_s']:.1f} s; conv3x3_mxu launches {launches} "
           f"({tc} tensor-core) ({card})")
@@ -4537,12 +4568,330 @@ def phase_mesh(device: str = "cuda"):
     return rec
 
 
+# [sp]: ring attention and sequence parallelism (fedml_tpu_torch/parallel/
+# {ring_attention,sequence,dp_sp}.py) at the fedllm bench width with 2,048
+# tokens a sequence: part 1 on a 1-rank NCCL (clients, sp) mesh, part 2 on
+# SP_RANKS gloo ranks sharing the card (1,024 tokens a shard), the K/V ring
+# staged through host memory.  SP_LM_TOL is the CPU tests' tolerance for the
+# sequence-parallel LM (tests/test_torch_ring_attention.py: 3e-4, where the
+# CPU's gap is ~1e-6); SP_ROUND_TOL bounds ||θ_ring − θ_1rank|| /
+# ||θ_1rank − θ_0|| of the bf16 round (a wrong psum or ppermute transpose
+# puts it at ~1 or more)
+SP_DIMS = dict(vocab_size=8192, embed_dim=1280, num_heads=10, num_layers=12)
+SP_L, SP_STEPS, SP_BATCH, SP_LM_BATCH, SP_LR = 2048, 2, 8, 2, 3e-4
+SP_RANKS, SP_LM_TOL, SP_ROUND_TOL, SP_LOSS_RTOL = 2, 3e-4, 0.05, 1e-2
+
+
+def _sp_geometry() -> dict:
+    """[sp]'s sizes, handed to its ranks whole (a rehearsal shrinks them)."""
+    return dict(dims=SP_DIMS, L=SP_L, steps=SP_STEPS, batch=SP_BATCH,
+                lm_batch=SP_LM_BATCH, lr=SP_LR, ranks=SP_RANKS)
+
+
+def _sp_problem(g: dict):
+    """The DP×SP block (1 client x ``steps`` x ``batch`` sequences of ``L``
+    tokens) and the fp32 forward's tokens, from numpy seeds 0 and 1."""
+    import numpy as np
+
+    v, L, steps, batch = g["dims"]["vocab_size"], g["L"], g["steps"], g["batch"]
+    toks = np.random.RandomState(0).randint(0, v, (1, steps, batch, L)).astype(np.int32)
+    data = (toks, np.roll(toks, -1, axis=-1), np.ones((1, steps, batch), np.float32),
+            np.full((1,), steps * batch * L, np.float32), np.ones(1, np.float32),
+            np.arange(1, dtype=np.int32))
+    lm = np.random.RandomState(1).randint(0, v, (g["lm_batch"], L)).astype(np.int32)
+    return data, lm
+
+
+def _digest(variables: dict) -> str:
+    """sha256 over a variables tree's names and raw bytes."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for c in sorted(variables):
+        for k in sorted(variables[c]):
+            h.update(k.encode())
+            leaf = variables[c][k].detach().cpu().contiguous().view(-1)
+            h.update(leaf.view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def _sp_rank(spec: dict) -> dict:
+    """[sp]'s part 2 on one of SP_RANKS gloo ranks: the fp32
+    sequence-parallel LM forward against part 1's 1-rank forward, the bf16
+    DP×SP round against part 1's round, and ``run.main --sp_degree``; each
+    with its seconds, this rank's flash launches and the bytes the ring
+    staged through the host."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.algorithms.fedavg import ServerState
+    from fedml_tpu_torch.core.client import make_client_optimizer
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.parallel.compat import ppermute
+    from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
+    from fedml_tpu_torch.parallel.sequence import make_sequence_mesh, sequence_parallel_lm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = spec["device"]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def measured(fn):
+        reset_launches()
+        ppermute.staged_bytes = 0
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        seen = read_launches()
+        return out, {"s": time.perf_counter() - t0, "staged_bytes": ppermute.staged_bytes,
+                     "flash": seen["flash_attention_fwd"],
+                     "wgmma": seen["flash_attention_fwd_wgmma"]}
+
+    g = spec["geometry"]
+    data, lm_tokens = _sp_problem(g)
+    ref = torch.load(spec["ref"], map_location=device)
+    key = PRNGKey(0)
+    out = {"rank": dist.get_rank()}
+    mesh = make_sequence_mesh(device=device)
+    _, init, apply = sequence_parallel_lm(mesh, **g["dims"], max_len=g["L"],
+                                          attn_impl="flash")
+    state0 = ServerState(init(key), (), 0, key)
+    logits, out["lm"] = measured(lambda: apply(state0.variables, torch.from_numpy(lm_tokens)))
+    want = ref.pop("logits")
+    out["lm"].update(
+        gap=float((logits - want).abs().max()), scale=float(want.abs().max()),
+        within=bool(torch.isclose(logits, want, rtol=SP_LM_TOL, atol=SP_LM_TOL).all()),
+        finite=bool(torch.isfinite(logits).all()))
+    del logits, want
+
+    dp_mesh = make_dp_sp_mesh(1, g["ranks"], device=device)
+    round_fn, shard_data, _ = make_dp_sp_round_fn(
+        dp_mesh, **g["dims"], max_len=g["L"], optimizer=make_client_optimizer("sgd", g["lr"]),
+        compute_dtype=torch.bfloat16, attn_impl="flash")
+    block = shard_data(data)
+    (state, metrics), out["round"] = measured(lambda: round_fn(state0, *block))
+    num = den = 0.0
+    for k, new in state.variables["params"].items():
+        old, want = state0.variables["params"][k], ref["params"][k]
+        num += float((new.double() - want.double()).square().sum())
+        den += float((want.double() - old.double()).square().sum())
+    out["round"].update(gap=(num / max(den, 1e-300)) ** 0.5,
+                        loss=float(metrics["loss_sum"]) / max(float(metrics["count"]), 1.0),
+                        loss_gap=abs(float(metrics["loss_sum"]) - ref["loss_sum"])
+                        / abs(ref["loss_sum"]),
+                        digest=_digest(state.variables))
+    del state, state0, ref, block
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    run_dir = os.path.join(spec["run_dir"], f"rank{dist.get_rank()}")
+    argv = ["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--sp_degree",
+            str(g["ranks"]), "--comm_round", "1", "--run_dir", run_dir]
+    res, out["run"] = measured(lambda: run.main(
+        [*argv, *(["--device", "cpu"] if device == "cpu" else [])]))
+    out["run"].update(history=res["history"], mesh=res["mesh"])
+    return out
+
+
+def mesh_sp_ranks(mesh_cases: list, sp_spec: dict) -> dict:
+    """Rank body of the gloo launch that [sp] shares with [mesh]: [mesh]'s
+    part-3 cases (``parallel/dryrun.py::run_cases``), then [sp]'s part 2."""
+    from fedml_tpu_torch.parallel.dryrun import run_cases
+
+    t0 = time.perf_counter()
+    sp = _sp_rank(sp_spec)
+    sp["seconds"] = time.perf_counter() - t0
+    return {"mesh": run_cases(mesh_cases), "sp": sp}
+
+
+def phase_sp(device: str = "cuda", mesh_rec: Optional[dict] = None):
+    """Ring attention and sequence parallelism on the card (``parallel/
+    {ring_attention,sequence,dp_sp}.py``) at the fedllm bench width
+    (SP_DIMS, bf16 rounds, SGD SP_LR), 2,048 tokens a sequence.
+
+    1. a 1-rank NCCL ``(clients, sp)`` mesh: one ``make_dp_sp_round_fn``
+       round (flash ring; 1 client x SP_STEPS steps of SP_BATCH) equal byte
+       for byte to ``make_round_fn`` over the plain ``transformer_lm`` from
+       the same state and block, the two timed in turns (ring, plain,
+       plain, ring); 12 flash launches per forward, all wgmma; then the fp32
+       forward of ``sequence_parallel_lm`` (flash) over SP_LM_BATCH full
+       sequences, and the round's variables, kept for part 2;
+    2. SP_RANKS gloo ranks sharing the card (one launch with [mesh]'s
+       part 3 when ``mesh_rec`` is given), every tensor on the card and the
+       K/V ring staged through the host: the fp32 sequence-parallel forward
+       within SP_LM_TOL of part 1's; the bf16 DP×SP round (1 client x 2
+       shards of 1,024) within SP_ROUND_TOL of part 1's round (relative to
+       its update) and its loss within SP_LOSS_RTOL, every rank holding the
+       same bytes; ``run.main`` fedllm with ``--sp_degree 2`` (the lax ring at
+       run.py's widths; its evaluation runs the flash op on the card);
+       per rank the flash launches (2 per layer per forward: the resident
+       shard and one from the ring), the bytes staged and the seconds.
+
+    ``device`` "cpu" rehearses the phase on gloo (launch counts are 0)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import ServerState, make_round_fn
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.models.transformer import transformer_lm
+    from fedml_tpu_torch.parallel.compat import launch, single_rank_group
+    from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
+    from fedml_tpu_torch.parallel.sequence import make_sequence_mesh, sequence_parallel_lm
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    layers = SP_DIMS["num_layers"]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    data, lm_tokens = _sp_problem(_sp_geometry())
+    key = PRNGKey(0)
+    opt = make_client_optimizer("sgd", SP_LR)
+    tmp = tempfile.mkdtemp(prefix="fedml_sp_")
+    ref_path = os.path.join(tmp, "reference.pt")
+    try:
+        with single_rank_group(device):
+            mesh = make_dp_sp_mesh(1, 1, device=device)
+            ring_round, shard_data, init_fn = make_dp_sp_round_fn(
+                mesh, **SP_DIMS, max_len=SP_L, optimizer=opt, compute_dtype=torch.bfloat16,
+                attn_impl="flash")
+            plain = make_round_fn(make_local_update(
+                transformer_lm(**SP_DIMS, seq_len=SP_L, device=device), opt, 1,
+                compute_dtype=torch.bfloat16), device=device)
+            t0 = time.perf_counter()
+            state0 = ServerState(init_fn(key), (), 0, key)
+            block = shard_data(data)
+            for warm in (plain, ring_round):
+                warm(state0, *block)
+            sync()
+            setup_s = time.perf_counter() - t0
+            times = {"ring": [], "plain": []}
+            out = {}
+            for turn, name in enumerate(("ring", "plain", "plain", "ring")):
+                fn = ring_round if name == "ring" else plain
+                if turn == 0:
+                    reset_launches()
+                t0 = time.perf_counter()
+                state, metrics = fn(state0, *block)
+                sync()
+                times[name].append(time.perf_counter() - t0)
+                if turn == 0:
+                    seen = read_launches()
+                out.setdefault(name, (state, metrics))
+            (got, gm), (want, wm) = out["ring"], out["plain"]
+            same = _same_tensors(got.variables, want.variables) and _same_tensors(gm, wm)
+            loss = float(gm["loss_sum"]) / max(float(gm["count"]), 1.0)
+            fwd = SP_STEPS
+            launches, wgmma = seen["flash_attention_fwd"], seen["flash_attention_fwd_wgmma"]
+            rec.update(setup_s=setup_s, ring_round_s=times["ring"], plain_round_s=times["plain"],
+                       bytewise_equal=same, loss=loss, launches=launches, wgmma=wgmma)
+            print(f"[sp] make_dp_sp_round_fn (flash ring) on a 1-rank {device} (clients, sp) "
+                  f"mesh, width {SP_DIMS['embed_dim']}, {layers} layers, L {SP_L}, 1 client x "
+                  f"{SP_STEPS} steps of {SP_BATCH}, bf16: set-up {setup_s:.2f} s; ring round s "
+                  f"{[round(t, 4) for t in times['ring']]}, make_round_fn round s "
+                  f"{[round(t, 4) for t in times['plain']]} (in turns ring, plain, plain, ring; "
+                  f"median ratio {np.median(times['ring']) / np.median(times['plain']):.3f}); "
+                  f"loss {loss:.4f}; equal byte for byte {same}; flash launches {launches} "
+                  f"({wgmma} wgmma) for {fwd} forwards ({card})")
+            if not same:
+                fail("sp: the 1-rank DP×SP round is not make_round_fn's byte for byte")
+            if not math.isfinite(loss):
+                fail(f"sp: non-finite loss {loss}")
+            if device == "cuda" and (launches != layers * fwd or wgmma != layers * fwd):
+                fail(f"sp: flash launches {launches} ({wgmma} wgmma), expected "
+                     f"{layers * fwd}, all wgmma")
+            _, _, apply = sequence_parallel_lm(make_sequence_mesh(device=device), **SP_DIMS,
+                                               max_len=SP_L, attn_impl="flash")
+            logits = apply(state0.variables, torch.from_numpy(lm_tokens))
+            torch.save({"logits": logits.cpu(), "loss_sum": float(gm["loss_sum"]),
+                        "params": {k: v.cpu() for k, v in got.variables["params"].items()}},
+                       ref_path)
+            del state0, block, out, got, want, state, logits
+        if device == "cuda":
+            torch.cuda.empty_cache()
+
+        mesh_cases = mesh_rank_cases(device) if mesh_rec is not None else []
+        t0 = time.perf_counter()
+        ranks = launch(mesh_sp_ranks, SP_RANKS, mesh_cases,
+                       dict(device=device, ref=ref_path, run_dir=tmp,
+                            geometry=_sp_geometry()), device=device,
+                       backend="gloo", timeout=600.0)
+        wall = time.perf_counter() - t0
+    finally:
+        import shutil
+
+        shutil.rmtree(tmp, ignore_errors=True)
+    sp = [r["sp"] for r in ranks]
+    if mesh_cases:
+        check_mesh_ranks([r["mesh"] for r in ranks], wall, mesh_rec, device, card,
+                         extra_s=max(x["seconds"] for x in sp))
+    for x in sp:
+        lm, rnd, run_ = x["lm"], x["round"], x["run"]
+        print(f"[sp] rank {x['rank']} of {SP_RANKS} gloo ranks on {device}: "
+              f"sequence_parallel_lm (flash, fp32, {SP_LM_BATCH} x {SP_L}) {lm['s']:.3f} s, "
+              f"max |Δ| {lm['gap']:.3g} vs the 1-rank forward (max |logit| "
+              f"{lm['scale']:.3g}, within {SP_LM_TOL}: {lm['within']}), flash launches "
+              f"{lm['flash']} ({lm['wgmma']} wgmma), staged {lm['staged_bytes']} B; "
+              f"DP×SP round (flash, bf16) {rnd['s']:.3f} s, ||Δθ|| / ||update|| vs part 1 "
+              f"{rnd['gap']:.3g} (gate {SP_ROUND_TOL}), loss {rnd['loss']:.4f} (rel. gap "
+              f"{rnd['loss_gap']:.3g}), flash launches {rnd['flash']} ({rnd['wgmma']} wgmma), "
+              f"staged {rnd['staged_bytes']} B; run.main --sp_degree {SP_RANKS} "
+              f"{run_['s']:.3f} s, mesh {run_['mesh']}, flash launches {run_['flash']} "
+              f"({run_['wgmma']} wgmma), staged {run_['staged_bytes']} B, final "
+              f"{json.dumps({k: run_['history'][-1][k] for k in ('train_loss', 'test_loss')})} "
+              f"({card})")
+        if not (lm["within"] and lm["finite"]):
+            fail(f"sp: rank {x['rank']}'s sequence-parallel forward is {lm['gap']:.3g} from "
+                 "the 1-rank forward")
+        if not (rnd["gap"] <= SP_ROUND_TOL and rnd["loss_gap"] <= SP_LOSS_RTOL):
+            fail(f"sp: rank {x['rank']}'s DP×SP round is {rnd['gap']:.3g} of the update "
+                 f"(loss {rnd['loss_gap']:.3g}) from the 1-rank round")
+        if device == "cuda" and (lm["flash"] != SP_RANKS * layers or rnd["flash"] != SP_RANKS
+                                 * layers * SP_STEPS or rnd["wgmma"] != rnd["flash"]):
+            fail(f"sp: rank {x['rank']}'s flash launches {lm['flash']} (forward), "
+                 f"{rnd['flash']} ({rnd['wgmma']} wgmma, round): expected "
+                 f"{SP_RANKS * layers}, {SP_RANKS * layers * SP_STEPS} all wgmma")
+        if not all(math.isfinite(run_["history"][-1][k]) for k in ("train_loss", "test_loss")):
+            fail(f"sp: run.main --sp_degree gave non-finite metrics {run_['history'][-1]}")
+    if len({x["round"]["digest"] for x in sp}) != 1:
+        fail("sp: the ranks' DP×SP rounds do not hold the same bytes")
+    if any(x["run"]["history"] != sp[0]["run"]["history"] for x in sp):
+        fail("sp: the ranks' run.main histories differ")
+    body = max(x["seconds"] for x in sp)
+    rec.update(ranks=sp, launch_s=wall, rank_sp_s=body,
+               flash_launches=launches + sum(x[p]["flash"] for x in sp
+                                             for p in ("lm", "round", "run")),
+               flash_wgmma_launches=wgmma + sum(x[p]["wgmma"] for x in sp
+                                                for p in ("lm", "round", "run")),
+               staged_bytes_per_round=[x["round"]["staged_bytes"] for x in sp])
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[sp] {SP_RANKS}-rank gloo launch {wall:.2f} s ([sp]'s work {body:.2f} s a rank); "
+          f"phase time {rec['phase_s']:.1f} s; flash launches {rec['flash_launches']} "
+          f"({rec['flash_wgmma_launches']} wgmma); bytes staged through the host per "
+          f"DP×SP round {rec['staged_bytes_per_round']} ({card})")
+    return rec
+
+
 PHASES = ["build", "kernels", "check", "main", "fedllm", "rng", "north_star", "sim",
           "init", "compress", "pack", "zoo", "silo", "algos", "standalone", "family",
-          "imagenet", "comm", "xdevice", "tcp", "mesh"]
+          "imagenet", "comm", "xdevice", "tcp", "mesh", "sp"]
 # the phases whose ResNet-56 client forwards the kernels line's conv count sums
 CONV_PHASES = ["main", "north_star", "sim", "compress", "silo", "algos", "standalone",
                "imagenet", "xdevice", "tcp", "mesh"]
+# the phases whose transformer forwards the kernels line's flash count sums
+FLASH_PHASES = ["fedllm", "sp"]
 
 
 def main() -> int:
@@ -4613,7 +4962,9 @@ def main() -> int:
         run("comm", phase_comm)
         run("xdevice", phase_xdevice)
         run("tcp", phase_tcp)
-        run("mesh", phase_mesh)
+        # [mesh]'s gloo ranks run in [sp]'s launch when both are selected
+        run("mesh", lambda: phase_mesh(launch_ranks="sp" not in selected))
+        run("sp", lambda: phase_sp(mesh_rec=recs.get("mesh")))
     total = sum(seconds.values())
     print(f"[phases] {total:.1f} s over {len(seconds)} phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + f" ({smi})")
@@ -4676,8 +5027,9 @@ def kernels_record(recs: dict) -> list:
         "route": "cuda",
         "source": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
         "replaces": "fedml_tpu/ops/flash_attention.py:35",
-        "launches": recs.get("fedllm", {}).get("flash_launches", 0),
-        "wgmma_launches": recs.get("fedllm", {}).get("flash_wgmma_launches", 0),
+        "launches": sum(recs.get(p, {}).get("flash_launches", 0) for p in FLASH_PHASES),
+        "wgmma_launches": sum(recs.get(p, {}).get("flash_wgmma_launches", 0)
+                              for p in FLASH_PHASES),
         "max_abs_err": bench["max_abs_err"],
         "ms": BENCH_LAYERS * bench["ms"],
         "plain_ms": BENCH_LAYERS * bench["plain_ms"],

@@ -24,7 +24,11 @@ cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
 dataset's task loss; the multi-label one adds ``test_precision`` and
 ``test_recall`` to the evaluation record; ``synthetic`` is the
 class-prototype stand-in) and ``fedllm`` on one device
-(the transformer through ``FedAvgSimulation``); the standalone drivers
+(the transformer through ``FedAvgSimulation``) or, with ``--sp_degree N``,
+on a ``(clients, sp)`` mesh of ranks (each client's sequences sharded over
+N ranks with the lax ring; run it on ranks: ``compat.launch`` or
+``torchrun --nproc_per_node W -m fedml_tpu_torch.experiments.run ...``);
+the standalone drivers
 ``centralized``, ``decentralized`` (gossip over
 ``SymmetricTopologyManager(n, min(2, n − 1))``, worker 0 evaluated),
 ``turboaggregate`` (the secure sum over the field) and ``fedgkt``
@@ -42,7 +46,7 @@ history); ``--checkpoint_every/--checkpoint_dir/--resume``
 semantics, and ``--compress/--compress_ef`` (update compression with
 error feedback) on the FedAvg engine's own round kernel (FedNova builds
 its own and refuses it).  The knobs whose machinery is not ported yet
-(``tp_degree``/``sp_degree``/``mesh``) raise ``NotImplementedError``
+(``tp_degree``/``mesh``/``partition_rules``) raise ``NotImplementedError``
 naming their ROADMAP item; so does ``--compress`` outside the FedAvg
 engine, which the JAX package ignores there.
 ``--conv_variant kernel`` (the port's own flag) runs ResNet-56 with every
@@ -55,6 +59,7 @@ through ``MetricsLogger``.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -237,11 +242,24 @@ _STANDALONE = frozenset(("centralized", "decentralized", "turboaggregate", "fedg
 _OWN_MODELS = frozenset(("fedgkt", "splitnn", "vfl", "fednas"))
 
 def _refuse_unported(cfg: ExperimentConfig) -> None:
-    """Fail before any work on a knob whose machinery is not ported."""
-    if cfg.tp_degree > 1 or cfg.sp_degree > 1 or cfg.mesh or cfg.partition_rules:
-        raise _not_ported("tp_degree/sp_degree/mesh (the multi-device engines)",
-                          "queue A item 6b-6c: sequence, tensor and rule-driven "
-                          "sharding")
+    """Fail before any work on a knob whose machinery is not ported, and
+    on the JAX fedllm path's exclusive knobs with its ValueErrors."""
+    if cfg.algorithm == "fedllm" and cfg.mesh and (cfg.tp_degree > 1 or cfg.sp_degree > 1):
+        raise ValueError(
+            "--mesh is the rule-driven sharding engine and is exclusive "
+            "with tp_degree/sp_degree (those pick the heuristic meshes)")
+    if cfg.tp_degree > 1 and cfg.sp_degree > 1:
+        raise ValueError(
+            "tp_degree and sp_degree cannot both exceed 1 (a 3-D "
+            "clients x model x sp mesh is not wired up)")
+    if cfg.tp_degree > 1 or cfg.mesh or cfg.partition_rules:
+        raise _not_ported("tp_degree/mesh/partition_rules (tensor and rule-driven "
+                          "sharding)", "queue A item 6c")
+    if cfg.sp_degree > 1 and cfg.algorithm != "fedllm":
+        # the JAX entry point ignores the degree outside fedllm (ROADMAP
+        # queue C4); refusing beats training unsharded silently
+        raise ValueError(f"--sp_degree shards fedllm's sequences; {cfg.algorithm} "
+                         "has no sequence-parallel path")
     if (cfg.compress or cfg.compress_ef) and cfg.algorithm not in _RESUMABLE:
         # the JAX package ignores these flags outside the FedAvg engine
         # (ROADMAP queue C4); refusing beats training uncompressed silently
@@ -335,6 +353,8 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
             vocab_size=vocab, embed_dim=cfg.embed_dim, num_heads=cfg.num_heads,
             num_layers=cfg.num_layers, seq_len=seq_len, device=device,
         )
+        if cfg.sp_degree > 1:
+            return _run_fedllm_sp(cfg, ds, bundle, vocab, device, t0, log_fn, metrics)
     elif cfg.conv_variant:
         if (cfg.model, cfg.conv_variant) != ("resnet56", "kernel"):
             raise ValueError("--conv_variant kernel is ResNet-56's (--model "
@@ -361,6 +381,103 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
     if done:
         out["resumed_rounds"] = done
     return out
+
+
+@contextlib.contextmanager
+def _rank_group(device):
+    """The process group a rank runs in: the caller's (``compat.launch``),
+    one initialized here from ``torchrun``'s environment (``WORLD_SIZE``,
+    ``RANK``, ``MASTER_ADDR``/``MASTER_PORT``; NCCL on the card, one card
+    per ``LOCAL_RANK``, gloo on the CPU) and torn down after, or none."""
+    import torch
+    import torch.distributed as dist
+
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    try:
+        yield
+        dist.barrier()  # no rank closes its connections under a peer's receive
+    finally:
+        dist.destroy_process_group()
+
+
+def _run_fedllm_sp(cfg: ExperimentConfig, ds, bundle, vocab, device, t0, log_fn,
+                   metrics) -> dict:
+    """fedllm on a ``(clients, sp)`` mesh of every rank: each client's
+    sequences sharded over ``sp_degree`` ranks with the lax ring
+    (``parallel/dp_sp.py``), the cohort over the rest.  Every rank runs
+    this loop on its block and logs the same history."""
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import ServerState, resolve_compute_dtype
+    from fedml_tpu_torch.core.client import (eval_summary, make_client_optimizer,
+                                             make_evaluator)
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.core.sampling import host_sample_ids, inject_dropout
+    from fedml_tpu_torch.core.types import (batch_eval_pack, cohort_steps_per_epoch,
+                                            pack_clients, to_device)
+    from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
+    from fedml_tpu_torch.parallel.mesh import describe_mesh, world_size
+
+    seq_len = int(ds.train_x.shape[1])
+    degree = cfg.sp_degree
+    with _rank_group(device):
+        count = world_size()
+        if count % degree:
+            raise ValueError(f"parallel degree {degree} does not divide device count "
+                             f"{count}")
+        dp = count // degree
+        K = min(cfg.client_num_per_round, ds.num_clients)
+        if K % dp:
+            raise ValueError(f"cohort {K} not divisible by dp width {dp}")
+        if seq_len % degree:
+            raise ValueError(f"sequence length {seq_len} not divisible by sp_degree "
+                             f"{degree}")
+        opt = make_client_optimizer(cfg.client_optimizer, cfg.lr, momentum=cfg.momentum,
+                                    weight_decay=cfg.wd)
+        mesh = make_dp_sp_mesh(dp, degree, device=device)
+        round_fn, shard_data, init_fn = make_dp_sp_round_fn(
+            mesh, vocab_size=vocab, embed_dim=cfg.embed_dim, num_heads=cfg.num_heads,
+            num_layers=cfg.num_layers, max_len=seq_len, optimizer=opt,
+            epochs=cfg.epochs, compute_dtype=resolve_compute_dtype(cfg.compute_dtype or None),
+            block_size=max(1, min(512, seq_len // degree)))
+        key = PRNGKey(cfg.seed)
+        state = ServerState(init_fn(key), (), 0, key)
+        steps = cohort_steps_per_epoch(ds, cfg.batch_size)
+        # the one-device fedllm's evaluator and cadence, on every rank
+        evaluator = make_evaluator(bundle)
+        test = to_device(batch_eval_pack(ds.test_x, ds.test_y, max(cfg.batch_size, 64)),
+                         device)
+        hist = []
+        for r in range(cfg.comm_round):
+            ids = host_sample_ids(cfg.seed, r, ds.num_clients, K)
+            pack = pack_clients(ds, ids, cfg.batch_size, steps_per_epoch=steps,
+                                seed=cfg.seed, reuse_buffers=True)
+            participation = np.ones(K, np.float32)
+            if cfg.drop_prob > 0.0:
+                participation = inject_dropout(
+                    PRNGKey(cfg.seed), r, torch.from_numpy(participation),
+                    cfg.drop_prob).numpy()
+            state, m = round_fn(state, *shard_data((
+                pack.x, pack.y, pack.mask, pack.num_samples, participation,
+                np.asarray(ids, np.int32))))
+            row = {"round": r, **{k: float(v) for k, v in m.items()}}
+            if row.get("count"):
+                row["train_loss"] = row["loss_sum"] / row["count"]
+            if r % cfg.frequency_of_the_test == 0 or r == cfg.comm_round - 1:
+                row.update(eval_summary(evaluator(state.variables, *test)))
+            hist.append(row)
+            if metrics is not None:
+                metrics.log(row, step=r)
+            if log_fn:
+                log_fn(row)
+        return {"history": hist, "final": hist[-1], "mesh": describe_mesh(mesh)["axes"],
+                "wall_s": time.time() - t0}
 
 
 def _run_fedgkt(cfg: ExperimentConfig, ds, device, t0) -> dict:

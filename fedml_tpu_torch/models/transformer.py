@@ -104,14 +104,21 @@ class TransformerLM(nn.Module):
     """``remat`` checkpoints each block: its activations are recomputed in
     the backward pass (``torch.utils.checkpoint``, non-reentrant), which
     trades about a third more FLOPs for O(layers) less live memory.  The
-    state names are the same either way."""
+    state names are the same either way.
+
+    ``pos_offset_fn(L)`` gives the global position of the first of the ``L``
+    tokens it is handed (a sequence shard's offset, ``parallel/
+    sequence.py``): the positional rows ``[pos0, pos0 + L)`` are added; an
+    offset that runs past ``max_len`` raises."""
 
     def __init__(self, vocab_size: int = 256, embed_dim: int = 128,
                  num_heads: int = 4, num_layers: int = 2, max_len: int = 2048,
-                 attn_fn: Optional[AttnFn] = None, remat: bool = False):
+                 attn_fn: Optional[AttnFn] = None, remat: bool = False,
+                 pos_offset_fn: Optional[Callable[[int], int]] = None):
         super().__init__()
         self.max_len = max_len
         self.remat = remat
+        self.pos_offset_fn = pos_offset_fn
         self.wte = Embed(vocab_size, embed_dim)
         self.wpe = Embed(max_len, embed_dim)
         self.blocks = []
@@ -122,9 +129,10 @@ class TransformerLM(nn.Module):
 
     def forward(self, x, train: bool = False, updates: Optional[dict] = None):
         B, L = x.shape
-        if L > self.max_len:
+        pos0 = self.pos_offset_fn(L) if self.pos_offset_fn else 0
+        if pos0 + L > self.max_len:
             raise ValueError(f"sequence length {L} exceeds max_len {self.max_len}")
-        h = self.wte(x) + self.wpe.embedding[:L][None]
+        h = self.wte(x) + self.wpe.embedding[pos0:pos0 + L][None]
         for name in self.blocks:
             block = getattr(self, name)
             if self.remat:

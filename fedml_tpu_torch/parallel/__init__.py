@@ -14,10 +14,14 @@ NCCL on the card.
 - ``mesh.py`` — the ``--mesh dp,mp`` parser and the dp×mp mesh.
 - ``spmd.py`` — FedAvg over a ``clients`` mesh axis, its host-local data
   assembly, and the two-tier round on a ``(group, clients)`` mesh.
-- ``dryrun.py`` — ``dryrun_multichip``, the multi-device check.
+- ``ring_attention.py`` — blockwise attention and the K/V rings (the
+  blockwise ring and the flash ring) over a sequence-sharded axis.
+- ``sequence.py`` — the sequence-parallel transformer LM.
+- ``dp_sp.py`` — FedAvg rounds on a ``(clients, sp)`` mesh.
+- ``dryrun.py`` — ``dryrun_multichip``, the multi-device check, and the
+  rank bodies of the CPU parity tests.
 
-Ring attention, sequence, tensor, pipeline and expert parallelism
-(``fedml_tpu/parallel/{ring_attention,sequence,dp_sp,tensor,gspmd,
-partition,pipeline,expert}.py``) are not ported yet (ROADMAP.md, queue A
-items 6b-6d).
+Tensor, pipeline and expert parallelism (``fedml_tpu/parallel/{tensor,
+gspmd,partition,pipeline,expert}.py``) are not ported yet (ROADMAP.md,
+queue A items 6c-6d).
 """

@@ -16,7 +16,11 @@ across CPU processes, NCCL on the card.
 - ``psum``, ``ppermute``, ``all_gather`` (``tiled=True`` concatenates, as
   JAX's), ``axis_index`` and ``axis_size`` take an axis name or a tuple
   of names (the flattened, row-major axis, as JAX's), over the bound mesh.
-  A tree of tensors travels as one buffer per dtype.
+  A tree of tensors travels as one buffer per dtype.  ``psum`` and
+  ``ppermute`` are differentiable, with JAX's transposes (``psum`` of the
+  cotangents; ``ppermute`` along the inverse permutation); every rank runs
+  the same graph, so the backward's collectives meet in the same order.
+  Under gloo, ``ppermute`` stages a card buffer through host memory.
 - ``single_rank_group()`` makes this process a world of one rank (a
   1-rank mesh in process, beside the single-device code it must equal).
 - ``launch(fn, n, *args)`` spawns ``n`` ranks, runs ``fn(*args)`` on each
@@ -159,56 +163,122 @@ def _unpack(leaves, buffers) -> list:
     return out
 
 
-def psum(x, axis_name: AxisName):
-    """Sum ``x`` (a tensor, or dicts, lists and tuples of them) over the
-    axis; every rank gets the sum.  A Python number sums to itself times
-    the axis size, as ``lax.psum`` of a constant does."""
-    if isinstance(x, (int, float)):
-        return x * axis_size(axis_name)
-    mesh = current_mesh()
-    leaves = _leaves(x)
+def _psum_leaves(mesh, leaves, axis_name: AxisName) -> list:
     for a in _axes(axis_name):
         bufs = _buffers(leaves)
         for _, flat in bufs.values():
             dist.all_reduce(flat, group=mesh.get_group(a))
         leaves = _unpack(leaves, bufs)
-    return _rebuild(x, leaves)
+    return leaves
 
 
-def ppermute(x, axis_name: str, perm: Sequence[Tuple[int, int]]):
-    """Send this rank's ``x`` to the axis position that ``perm`` maps it to
-    and return what arrives here: ``(source, destination)`` pairs in axis
-    coordinates, zeros where nothing arrives (``lax.ppermute``)."""
+def _differentiable(leaves) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(leaf, torch.Tensor) and leaf.requires_grad for leaf in leaves)
+
+
+class _PSum(torch.autograd.Function):
+    """``psum`` under autograd; its transpose is ``psum`` of the cotangents
+    (JAX's).  The mesh rides on the node: the backward may run on autograd's
+    device thread, outside the caller's ``use_mesh``."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis_name, *leaves):
+        ctx.mesh, ctx.axis_name = mesh, axis_name
+        out = _psum_leaves(mesh, list(leaves), axis_name)
+        ctx.mark_non_differentiable(*(t for t in out if not t.is_floating_point()))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, *_psum_leaves(ctx.mesh, list(grads), ctx.axis_name))
+
+
+def psum(x, axis_name: AxisName):
+    """Sum ``x`` (a tensor, or dicts, lists and tuples of them) over the
+    axis; every rank gets the sum.  A Python number sums to itself times
+    the axis size, as ``lax.psum`` of a constant does.  Differentiable: the
+    cotangents are psum'd in the backward, as JAX transposes ``psum``, so
+    the gradient of a psum'd loss on each rank carries the axis size."""
+    if isinstance(x, (int, float)):
+        return x * axis_size(axis_name)
     mesh = current_mesh()
+    leaves = _leaves(x)
+    if _differentiable(leaves):
+        return _rebuild(x, list(_PSum.apply(mesh, axis_name, *leaves)))
+    return _rebuild(x, _psum_leaves(mesh, leaves, axis_name))
+
+
+def _ppermute_leaves(mesh, leaves, axis_name: str, perm) -> list:
     group = mesh.get_group(axis_name)
     me = mesh.get_local_rank(axis_name)
     dst = [d for s, d in perm if s == me]
     src = [s for s, d in perm if d == me]
-    leaves = _leaves(x)
-    if (dist.get_backend(group) == "gloo" and (dst, src) != ([me], [me])
-            and any(leaf.is_cuda for leaf in leaves)):
-        # gloo's send writes a card tensor's device pointer to its socket,
-        # and the rank aborts; NCCL (one card per rank) carries them
-        raise RuntimeError("gloo's point-to-point ops take host tensors only; run "
-                           "a mesh of card tensors on NCCL")
+    # gloo's send writes a card tensor's device pointer to its socket and the
+    # rank aborts, so under gloo a card buffer crosses through host memory
+    stage = dist.get_backend(group) == "gloo"
     bufs = _buffers(leaves)
     received = {}
     for dt, (idx, flat) in bufs.items():
         if dst == [me] and src == [me]:  # the identity: no transfer
             received[dt] = (idx, flat)
             continue
-        got = torch.zeros_like(flat)
+        staged = stage and flat.is_cuda
+        out = torch.zeros_like(flat, device="cpu" if staged else flat.device)
+        send = flat.cpu() if staged and dst else flat
         ops = []
         if dst:
-            ops.append(dist.P2POp(dist.isend, flat,
+            ops.append(dist.P2POp(dist.isend, send,
                                   dist.get_global_rank(group, dst[0]), group))
         if src:
-            ops.append(dist.P2POp(dist.irecv, got,
+            ops.append(dist.P2POp(dist.irecv, out,
                                   dist.get_global_rank(group, src[0]), group))
         for work in dist.batch_isend_irecv(ops) if ops else ():
             work.wait()
-        received[dt] = (idx, got)
-    return _rebuild(x, _unpack(leaves, received))
+        if staged:
+            ppermute.staged_bytes += (len(dst) + len(src)) * flat.numel() * flat.element_size()
+            out = out.to(flat.device)
+        received[dt] = (idx, out)
+    return _unpack(leaves, received)
+
+
+class _PPermute(torch.autograd.Function):
+    """``ppermute`` under autograd; its transpose is ``ppermute`` of the
+    cotangents under the inverse permutation (JAX's)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis_name, perm, *leaves):
+        ctx.mesh, ctx.axis_name = mesh, axis_name
+        ctx.inverse = [(d, s) for s, d in perm]
+        out = _ppermute_leaves(mesh, list(leaves), axis_name, perm)
+        ctx.mark_non_differentiable(*(t for t in out if not t.is_floating_point()))
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None, None,
+                *_ppermute_leaves(ctx.mesh, list(grads), ctx.axis_name, ctx.inverse))
+
+
+def ppermute(x, axis_name: str, perm: Sequence[Tuple[int, int]]):
+    """Send this rank's ``x`` to the axis position that ``perm`` maps it to
+    and return what arrives here: ``(source, destination)`` pairs in axis
+    coordinates, zeros where nothing arrives (``lax.ppermute``).  A tree
+    travels as one buffer per dtype, and is one autograd node: the backward
+    sends the cotangents back along the inverse permutation.
+
+    Under gloo a card tensor is staged through host memory: the buffer is
+    copied to the host, sent, received into a host buffer and copied back
+    to the card (``ppermute.staged_bytes`` counts the bytes staged, sent
+    and received).  NCCL moves card buffers directly."""
+    mesh = current_mesh()
+    leaves = _leaves(x)
+    if _differentiable(leaves):
+        return _rebuild(x, list(_PPermute.apply(mesh, axis_name, list(perm), *leaves)))
+    return _rebuild(x, _ppermute_leaves(mesh, leaves, axis_name, perm))
+
+
+ppermute.staged_bytes = 0
 
 
 def all_gather(x, axis_name: str, *, tiled: bool = True):

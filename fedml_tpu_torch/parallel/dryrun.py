@@ -15,10 +15,14 @@ same inputs:
 - **hier** (even ``n``) — the two-tier round on a ``(group, clients)``
   mesh against ``HierarchicalSimulation.run_round``.
 - **gossip** — the ``ppermute`` ring against the dense ring matrix.
+- **sp** — ``sequence_parallel_lm`` over a 1-D ``sp`` mesh (8 tokens a
+  shard, the lax ring) against the plain full-sequence ``TransformerLM``.
+- **dp_sp** (even ``n``) — a ``make_dp_sp_round_fn`` round on a ``(2,
+  n/2)`` ``(clients, sp)`` mesh against ``make_round_fn`` over the plain
+  transformer with ``blockwise_attention`` on one device.
 
-The JAX dryrun's dp×tp, dp×sp, tp, pp, sp and ep parts need the engines
-of ROADMAP queue A items 6b-6d, which are not ported yet; they are not
-run here.
+The JAX dryrun's dp×tp, tp, pp and ep parts need the engines of ROADMAP
+queue A items 6c-6d, which are not ported yet; they are not run here.
 
 The ``*_case`` functions are rank bodies: each runs on every rank of a
 launch, builds its problem from a plain spec (numpy in, numpy out) and
@@ -45,11 +49,16 @@ from fedml_tpu_torch.core.topology import ring_topology
 from fedml_tpu_torch.core.types import pack_clients
 from fedml_tpu_torch.data.synthetic import synthetic_classification
 from fedml_tpu_torch.models.linear import logistic_regression
+from fedml_tpu_torch.models.transformer import transformer_lm
 from fedml_tpu_torch.models.resnet import resnet20
 from fedml_tpu_torch.parallel.compat import (all_gather, axis_index, axis_size, launch,
                                              mesh_device, ppermute, psum, shard_map,
                                              use_mesh)
+from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
 from fedml_tpu_torch.parallel.mesh import describe_mesh, make_dp_mp_mesh, mesh_from_spec
+from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention, ring_attention,
+                                                     ring_flash_attention)
+from fedml_tpu_torch.parallel.sequence import make_sequence_mesh, sequence_parallel_lm
 from fedml_tpu_torch.parallel.spmd import (
     host_client_range,
     hierarchical_pack,
@@ -256,8 +265,152 @@ def mesh_case(spec: Dict) -> Dict:
     return out
 
 
+def grads_case(spec: Dict) -> Dict:
+    """The collectives' backward on a 1-D ``sp`` mesh of the world: the
+    gradients of ``Σ c_r · psum(w_r x_r)`` and of ``Σ c_r ·
+    ppermute(w_r x_r)`` (a ring, and a permutation leaving ranks out) with
+    respect to each rank's ``x_r``, where ``w_r = r + 1`` and ``c_r = r +
+    10``; and the same collectives' forward bytes with and without
+    autograd."""
+    mesh = make_1d_mesh(axis="sp", device=spec["device"])
+    dev = mesh_device(mesh)
+    out: Dict[str, Any] = {}
+    with use_mesh(mesh):
+        r, n = axis_index("sp"), axis_size("sp")
+        base = torch.arange(1.0, 4.0, device=dev) * (r + 1) + 0.5
+        perms = {"psum": None, "ring": [(i, (i + 1) % n) for i in range(n)],
+                 "partial": [(0, 1), (1, 3)]}
+        for name, perm in perms.items():
+            x = base.clone().requires_grad_(True)
+
+            def coll(t, perm=perm):
+                return psum(t, "sp") if perm is None else ppermute(t, "sp", perm)
+
+            y = coll((r + 1) * x)
+            (g,) = torch.autograd.grad((y * (r + 10)).sum(), [x])
+            with torch.no_grad():
+                plain = coll((r + 1) * base)
+            out[name] = {"grad": g, "same_forward": torch.equal(y.detach(), plain)}
+    return out
+
+
+def _qkv_shard(spec, mesh, dev):
+    """This rank's shards of the global q/k/v (and cotangent) along L."""
+    n, i = mesh.size(0), mesh.get_local_rank(mesh.mesh_dim_names[0])
+    L = spec["q"].shape[-3]
+
+    def shard(a):
+        a = np.asarray(a)
+        part = a[..., i * (L // n):(i + 1) * (L // n), :, :]
+        return torch.from_numpy(np.ascontiguousarray(part)).to(dev)
+
+    return [shard(spec[k]) for k in ("q", "k", "v")], (
+        shard(spec["cot"]) if spec.get("cot") is not None else None)
+
+
+def ring_case(spec: Dict) -> Dict:
+    """``ring_attention`` (``impl`` "lax", blocks of ``block``) or
+    ``ring_flash_attention`` (``impl`` "flash") over a 1-D ``sp`` mesh of
+    the world on this rank's L shard of the global ``q``/``k``/``v``
+    (``[L, H, D]`` or ``[B, L, H, D]``); with ``cot``, also the gradients
+    of ``Σ out · cot`` with respect to the rank's q, k and v shards."""
+    mesh = make_sequence_mesh(device=spec["device"])
+    dev = mesh_device(mesh)
+    (q, k, v), cot = _qkv_shard(spec, mesh, dev)
+    causal, block = spec["causal"], spec["block"]
+
+    def attend(q, k, v):
+        if spec["impl"] == "flash":
+            return ring_flash_attention(q, k, v, "sp", causal=causal, block=block)
+        return ring_attention(q, k, v, "sp", causal=causal, block_size=block)
+
+    with use_mesh(mesh):
+        if cot is None:
+            return {"out": attend(q, k, v)}
+        leaves = [t.requires_grad_(True) for t in (q, k, v)]
+        out = attend(*leaves)
+        grads = torch.autograd.grad((out * cot).sum(), leaves)
+    return {"out": out.detach(), "grads": list(grads)}
+
+
+def _lm_dims(spec: Dict) -> Dict:
+    return {k: spec[k] for k in ("vocab_size", "embed_dim", "num_heads", "num_layers",
+                                 "max_len")}
+
+
+def _ring_kwargs(spec: Dict) -> Dict:
+    """The ring's keywords: ``attn_impl`` and its block knob."""
+    if spec["attn_impl"] == "flash":
+        return {"attn_impl": "flash", "flash_block": spec.get("flash_block")}
+    return {"attn_impl": spec["attn_impl"], "block_size": spec.get("block_size", 512)}
+
+
+def sp_case(spec: Dict) -> Dict:
+    """``sequence_parallel_lm`` over a 1-D ``sp`` mesh of the world: every
+    rank's gathered logits of ``tokens`` ``[B, L]``, the variables drawn
+    from ``PRNGKey(key)``; with ``reference`` rank 0 also runs the plain
+    ``TransformerLM`` over the full sequence."""
+    mesh = make_sequence_mesh(device=spec["device"])
+    dev = mesh_device(mesh)
+    _, init, apply = sequence_parallel_lm(mesh, **_lm_dims(spec), **_ring_kwargs(spec))
+    variables = init(PRNGKey(spec["key"]))
+    tokens = torch.from_numpy(np.asarray(spec["tokens"], np.int32))
+    out = {"logits": apply(variables, tokens)}
+    if spec.get("reference") and dist.get_rank() == 0:
+        ref = transformer_lm(**{k: v for k, v in _lm_dims(spec).items() if k != "max_len"},
+                             seq_len=spec["max_len"], device=dev)
+        out["reference"] = ref.apply_eval(variables, tokens.to(dev))
+    return out
+
+
+def dp_sp_case(spec: Dict) -> Dict:
+    """One ``make_dp_sp_round_fn`` round on a ``(clients, sp)`` mesh of
+    ``spec["mesh"]`` over the global block ``spec["data"]``, SGD at
+    ``lr``, the variables and key from ``PRNGKey(key)``; with ``single``
+    rank 0 also runs ``make_round_fn`` over the plain full-length
+    transformer with ``blockwise_attention`` (blocks of ``oracle_block``)
+    on one device."""
+    mesh = make_dp_sp_mesh(*spec["mesh"], device=spec["device"])
+    dev = mesh_device(mesh)
+    dims = _lm_dims(spec)
+    opt = make_client_optimizer("sgd", spec["lr"])
+    round_fn, shard_data, init_fn = make_dp_sp_round_fn(
+        mesh, **dims, optimizer=opt, epochs=spec.get("epochs", 1), **_ring_kwargs(spec))
+    key = PRNGKey(spec["key"])
+    state = ServerState(init_fn(key), (), 0, key)
+    new_state, metrics = round_fn(state, *shard_data(spec["data"]))
+    out = {"mesh": describe_mesh(mesh), "variables": new_state.variables,
+           "metrics": metrics, "round_idx": new_state.round_idx}
+    if spec.get("single") and dist.get_rank() == 0:
+        block = spec["oracle_block"]
+        bundle = transformer_lm(
+            **{k: v for k, v in dims.items() if k != "max_len"}, seq_len=dims["max_len"],
+            attn_fn=lambda q, k, v, causal: blockwise_attention(
+                q, k, v, causal=causal, block_size=block), device=dev)
+        lu = make_local_update(bundle, opt, epochs=spec.get("epochs", 1))
+        data = spec["data"]
+        ref_state, ref_metrics = make_round_fn(lu, device=dev)(
+            state, *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in data[:5]),
+            data[5])
+        out["single"] = {"variables": ref_state.variables, "metrics": ref_metrics}
+    return out
+
+
+def run_main_case(spec: Dict) -> Dict:
+    """``experiments.run.main(argv)`` on this rank, its metrics under
+    ``run_dir/rank<r>``: the history, the final row and the mesh."""
+    import os
+
+    from fedml_tpu_torch.experiments import run
+
+    out = run.main([*spec["argv"], "--run_dir",
+                    os.path.join(spec["run_dir"], f"rank{dist.get_rank()}")])
+    return {k: out[k] for k in ("history", "final", "mesh")}
+
+
 CASES = {"mesh": mesh_case, "spmd": spmd_case, "hier": hier_case, "gossip": gossip_case,
-         "compiled": compiled_case}
+         "compiled": compiled_case, "grads": grads_case, "ring": ring_case, "sp": sp_case,
+         "dp_sp": dp_sp_case, "run_main": run_main_case}
 
 
 def run_cases(cases: Sequence[Tuple[str, Dict]]) -> List[Dict]:
@@ -295,6 +448,21 @@ def dryrun_cases(n_devices: int, device: str) -> List[Tuple[str, Dict]]:
                                  num_clients=n_devices, partition="homo", seed=2),
         model=("lr", 12, 4), opt=dict(name="sgd", lr=0.1), epochs=1, batch=8,
         init_key=9, rng_key=10, ring=True, reference=True)))
+    lm = dict(vocab_size=32, embed_dim=16, num_heads=2, num_layers=1)
+    cases.append(("sp", dict(
+        device=device, **lm, max_len=8 * n_devices, attn_impl="lax", block_size=8, key=4,
+        tokens=np.random.RandomState(5).randint(0, 32, (1, 8 * n_devices)),
+        reference=True)))
+    if n_devices % 2 == 0:
+        sp = n_devices // 2
+        lg = 8 * sp  # the global sequence: 8 tokens a shard
+        xs = np.random.RandomState(3).randint(0, 32, (2, 2, 2, lg)).astype(np.int32)
+        cases.append(("dp_sp", dict(
+            device=device, **lm, max_len=lg, mesh=(2, sp), lr=0.1, attn_impl="lax",
+            block_size=8, oracle_block=8, key=12, single=True,
+            data=(xs, np.roll(xs, -1, axis=-1), np.ones((2, 2, 2), np.float32),
+                  np.full((2,), 2 * 2 * lg, np.float32), np.ones((2,), np.float32),
+                  np.arange(2, dtype=np.int32)))))
     return cases
 
 
@@ -344,10 +512,20 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None, *,
                 np.testing.assert_allclose(res["metrics"]["loss_sum"],
                                            ref["reference"]["metrics"]["loss_sum"],
                                            rtol=1e-4)
-            else:
+            elif kind == "gossip":
                 gaps.append(_assert_close(res["variables"],
                                           treelib.tree_index(ref["reference"], rank),
                                           "gossip ppermute ring"))
+            elif kind == "sp":
+                gaps.append(_assert_close(res["logits"], ref["reference"],
+                                          "sp ring-attention LM forward"))
+            else:
+                if res["round_idx"] != 1:
+                    raise AssertionError(f"rank {rank}: dp×sp round did not complete")
+                gaps.append(_assert_close(res["variables"], ref["single"]["variables"],
+                                          "dp×sp round"))
+                np.testing.assert_allclose(res["metrics"]["loss_sum"],
+                                           ref["single"]["metrics"]["loss_sum"], rtol=1e-4)
         summary["parts"].append(kind)
         summary["max_gap"][kind] = max(gaps)
     return summary

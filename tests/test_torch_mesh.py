@@ -11,6 +11,10 @@ and item-9 leftovers, held against the JAX package:
   one axis, over a tuple and of a constant, ``all_gather`` tiled and
   stacked, ``ppermute`` as a ring and with ranks left out, ``axis_index``)
   against their definitions;
+- the collectives' backward on 4 gloo ranks against JAX's transposes
+  written out by hand (``psum``'s is ``psum``, ``ppermute``'s the inverse
+  permutation, zeros for a rank that sends nowhere), and their forward
+  bytes the same with and without autograd;
 - the launcher: a rank that raises fails the launch with its traceback,
   a rank that hangs fails it at the deadline;
 - ``tree_size`` against JAX's;
@@ -133,6 +137,29 @@ def test_collectives_over_named_axes(ranks):
         assert got["shift"].tolist() == [column[(i - 1) % 4]]
         # only position 0 sends, to position 1: the others receive zeros
         assert got["partial"].tolist() == [column[0] if i == 1 else 0.0]
+
+
+@pytest.fixture(scope="module")
+def grad_ranks():
+    return launch(run_cases, 4, [("grads", {"device": "cpu"})], device="cpu",
+                  timeout=120.0)
+
+
+@pytest.mark.parametrize("name", ["psum", "ring", "partial"])
+def test_collective_gradients_are_jaxs_transposes(grad_ranks, name):
+    """Rank r computes ``Σ c_r · coll(w_r x_r)`` with ``w_r = r + 1``, ``c_r =
+    r + 10``; the gradient with respect to its ``x_r`` is ``w_r`` times the
+    transposed collective applied to the cotangents ``c``: their psum, or
+    the ``c`` of the rank its ``x_r`` went to (0 if it went nowhere)."""
+    n = len(grad_ranks)
+    c = [r + 10 for r in range(n)]
+    dest = {"ring": {r: (r + 1) % n for r in range(n)}, "partial": {0: 1, 1: 3},
+            "psum": {}}[name]
+    for r, (got,) in enumerate(grad_ranks):
+        ct = sum(c) if name == "psum" else (c[dest[r]] if r in dest else 0.0)
+        np.testing.assert_array_equal(got[name]["grad"], np.full(3, (r + 1) * ct,
+                                                                 np.float32))
+        assert got[name]["same_forward"]
 
 
 def test_launcher_fails_on_a_failing_or_hung_rank():
