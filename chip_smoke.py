@@ -260,7 +260,27 @@ Phases, in order; any failure exits non-zero:
              a dp round within 8 float32 spacings of its one-device round
              and the gossip's dense SPMD form against the dense round, with
              the ranks' start-up seconds (in [sp]'s launch when [sp] runs).
-22. sp     — ring attention and sequence parallelism
+22. tp     — tensor parallelism and rule-driven sharding
+             (``fedml_tpu_torch/parallel/{tensor,gspmd,partition}.py``,
+             ``compress/sharded.py``) at the fedllm bench width (L 1,024,
+             bf16): one ``make_dp_tp_round_fn`` round on a 1-rank NCCL
+             (clients, model) mesh and one ``make_rule_round_fn`` round under
+             ``FEDLLM_RULES`` on a 1-rank (dp, mp) mesh (4 clients x 2 steps
+             of 8), each byte for byte ``make_round_fn`` and timed beside it
+             in turns, 12 flash launches per forward, all wgmma; then 2 gloo
+             ranks sharing the card (in [sp]'s launch): tp 2, the fp32 TP
+             forward within 3e-4 of the 1-rank forward and a planted fault
+             (each rank's heads from the wrong columns) beyond it, the bf16
+             DP×TP round within 0.05 of the 1-rank round's update, 12 flash
+             launches per forward per rank on 5 heads (wgmma in bf16), each
+             rank's parameter bytes equal to the count from the shapes and
+             the bytes summed over the model axis per step; the rule round on
+             a (1, 2) mesh and 2 int8 + EF rule rounds (1 of the 12 layers,
+             a shuffled cohort whose residual rows cross the ranks) on a (2,
+             1) mesh byte for byte the 1-rank ones; the int8 entries of the
+             card's shards byte for byte the CPU's; ``run.main`` with
+             ``--tp_degree 2`` and ``--mesh 1,2 --partition_rules fedllm``.
+23. sp     — ring attention and sequence parallelism
              (``fedml_tpu_torch/parallel/{ring_attention,sequence,dp_sp}.py``)
              at the fedllm bench width, 2,048 tokens a sequence: one
              ``make_dp_sp_round_fn`` round (flash ring, bf16, 1 client x 2
@@ -272,7 +292,8 @@ Phases, in order; any failure exits non-zero:
              ``sequence_parallel_lm`` forward within 3e-4 of the 1-rank
              forward, the bf16 round within 0.05 of part 1's update, every
              rank the same bytes, and ``run.main --sp_degree 2``; per rank
-             the flash launches, the bytes staged and the seconds.
+             the flash launches, the bytes staged and the seconds.  The same
+             launch runs [mesh]'s and [tp]'s multi-rank parts.
 
 ``--phases a,b,...`` runs only the named phases, in this order; every
 phase prints its seconds.
@@ -297,7 +318,8 @@ import os
 import subprocess
 import sys
 import time
-from typing import Optional
+import warnings
+from typing import Any, Callable, NamedTuple, Optional
 
 N = 64
 # (name, spatial, Cin, Cout, stride, convs of this shape per ResNet-56 forward)
@@ -322,7 +344,8 @@ CONV_SHAPES_224 = [
     ("stage3_body_224", 56, 64, 64, 1, 5),
 ]
 # (name, B, L, H, D, dtype, causal): the fedllm bench shape first; B*L = 8192
-# across the long-context range; run.py's fedllm defaults (width 64 / 4 heads,
+# across the long-context range; one rank's 5 of the 10 heads under tp 2;
+# run.py's fedllm defaults (width 64 / 4 heads,
 # 80-char windows, batch 64), in fp32 and in bf16 (the mma route)
 FLASH_CASES = [
     ("bench", 8, 1024, 10, 128, "bf16", True),
@@ -332,6 +355,8 @@ FLASH_CASES = [
     ("long4k", 2, 4096, 10, 128, "bf16", True),
     ("long8k", 1, 8192, 10, 128, "bf16", True),
     ("bench_d64", 8, 1024, 20, 64, "bf16", True),
+    # a tensor-parallel rank's heads at the bench width, tp 2 ([tp])
+    ("tp2_rank", 8, 1024, 5, 128, "bf16", True),
     ("run_py", 64, 80, 4, 16, "fp32", True),
     ("run_py_bf16", 64, 80, 4, 16, "bf16", True),
 ]
@@ -4356,6 +4381,69 @@ def _ulp_gap(got: dict, want: dict) -> float:
     return worst
 
 
+class RankPart(NamedTuple):
+    """A phase's share of one gloo launch of ranks sharing the card.
+    ``body(spec)`` runs on each of ``ranks`` ranks (a module-level function:
+    the launch pickles it by name); ``check(results, wall, extra_s)`` then
+    applies the phase's gates in this process to the ranks' results, given
+    the launch's wall seconds and the ranks' seconds in the other parts;
+    ``cleanup()`` runs after the launch, whatever happened."""
+    name: str
+    ranks: int
+    body: Callable
+    spec: Any
+    check: Callable
+    cleanup: Optional[Callable] = None
+
+
+def shared_rank_body(parts: list) -> dict:
+    """Rank body of a shared launch: each ``(name, body, spec)`` of
+    ``parts`` in turn, with its seconds on this rank."""
+    import torch
+
+    out, seconds = {}, {}
+    for name, body, spec in parts:
+        t0 = time.perf_counter()
+        out[name] = body(spec)
+        seconds[name] = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # (a no-op where the part used no card)
+    return {"parts": out, "seconds": seconds}
+
+
+def launch_shared(parts: list, device: str = "cuda") -> None:
+    """One gloo launch for every ``RankPart`` of ``parts`` (the multi-rank
+    phases pay one rank start-up, 9-11 s on the card), then each part's
+    check."""
+    from fedml_tpu_torch.parallel.compat import launch
+
+    counts = {p.ranks for p in parts}
+    if len(counts) != 1:
+        raise ValueError(f"the shared launch's parts want {counts} ranks")
+    t0 = time.perf_counter()
+    try:
+        ranks = launch(shared_rank_body, counts.pop(), [(p.name, p.body, p.spec) for p in parts],
+                       device=device, backend="gloo", timeout=900.0)
+    finally:
+        for p in parts:
+            if p.cleanup is not None:
+                p.cleanup()
+    wall = time.perf_counter() - t0
+    for p in parts:
+        others = max(sum(v for k, v in r["seconds"].items() if k != p.name) for r in ranks)
+        p.check([r["parts"][p.name] for r in ranks], wall, others)
+
+
+def _hand_over(part: RankPart, shared: Optional[list], device: str, card: str) -> None:
+    """Launch a phase's ranks now, or leave them to the launch that
+    ``shared`` collects for."""
+    if shared is None:
+        launch_shared([part], device)
+    else:
+        shared.append(part)
+        print(f"[{part.name}] the {part.ranks} gloo ranks' part runs in the shared launch "
+              f"({card})")
+
+
 def mesh_rank_cases(device: str) -> list:
     """[mesh]'s part 3: its cases for the gloo ranks sharing the card."""
     return [("spmd", {**MESH_LR, "device": device, "single": True}),
@@ -4394,7 +4482,7 @@ def check_mesh_ranks(ranks, wall: float, rec: dict, device: str, card: str,
         fail("mesh: the multi-rank gossip disagrees with the dense round")
 
 
-def phase_mesh(device: str = "cuda", launch_ranks: bool = True):
+def phase_mesh(device: str = "cuda", shared: Optional[list] = None):
     """FedAvg over a clients mesh of the port (``parallel/``) on the card.
 
     1. the main path on a 1-rank NCCL ``(clients, model)`` mesh: one round
@@ -4413,9 +4501,9 @@ def phase_mesh(device: str = "cuda", launch_ranks: bool = True):
        round (rank 0), within MESH_ULPS float32 spacings, every rank holding
        the same bytes; the gossip's dense SPMD form (``all_gather`` and the
        rank's row of the ring matrix) against the dense round within
-       MESH_GOSSIP_TOL; the ranks' start-up seconds.  With ``launch_ranks``
-       False these cases run in [sp]'s launch of the same ranks
-       (``phase_sp(mesh_rec=...)``), which pays one start-up for both.
+       MESH_GOSSIP_TOL; the ranks' start-up seconds.  Given a ``shared``
+       list, these cases join it as a ``RankPart`` for ``launch_shared``,
+       which pays one start-up for every multi-rank phase.
 
     ``device`` "cpu" rehearses the phase on gloo (launch counts are 0)."""
     import numpy as np
@@ -4431,7 +4519,7 @@ def phase_mesh(device: str = "cuda", launch_ranks: bool = True):
     from fedml_tpu_torch.data.cifar import load_cifar10
     from fedml_tpu_torch.experiments.registry import shrink_dataset
     from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
-    from fedml_tpu_torch.parallel.compat import launch, single_rank_group
+    from fedml_tpu_torch.parallel.compat import single_rank_group
     from fedml_tpu_torch.parallel.dryrun import run_cases
     from fedml_tpu_torch.parallel.mesh import describe_mesh
     from fedml_tpu_torch.parallel.spmd import (hierarchical_pack, make_1d_mesh,
@@ -4553,14 +4641,11 @@ def phase_mesh(device: str = "cuda", launch_ranks: bool = True):
         rec.update(hier_s=hier_s, host_hier_s=host_s, hier_gap=gap,
                    compiled=history.tolist())
 
-    if launch_ranks:
-        # several ranks on the one card: one gloo group, every tensor on the card
-        t0 = time.perf_counter()
-        ranks = launch(run_cases, MESH_RANKS, mesh_rank_cases(device), device=device,
-                       backend="gloo", timeout=300.0)
-        check_mesh_ranks(ranks, time.perf_counter() - t0, rec, device, card)
-    else:
-        print(f"[mesh] the {MESH_RANKS} gloo ranks' cases run in [sp]'s launch ({card})")
+    # several ranks on the one card: one gloo group, every tensor on the card
+    _hand_over(RankPart("mesh", MESH_RANKS, run_cases, mesh_rank_cases(device),
+                        lambda ranks, wall, extra: check_mesh_ranks(ranks, wall, rec, device,
+                                                                    card, extra_s=extra)),
+               shared, device, card)
     rec["phase_s"] = time.perf_counter() - t_phase
     print(f"[mesh] phase time: {rec['phase_s']:.1f} s; conv3x3_mxu launches {launches} "
           f"({tc} tensor-core) ({card})")
@@ -4635,6 +4720,7 @@ def _sp_rank(spec: dict) -> dict:
     from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
     from fedml_tpu_torch.parallel.sequence import make_sequence_mesh, sequence_parallel_lm
 
+    t_rank = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     device = spec["device"]
 
@@ -4696,21 +4782,11 @@ def _sp_rank(spec: dict) -> dict:
     res, out["run"] = measured(lambda: run.main(
         [*argv, *(["--device", "cpu"] if device == "cpu" else [])]))
     out["run"].update(history=res["history"], mesh=res["mesh"])
+    out["seconds"] = time.perf_counter() - t_rank
     return out
 
 
-def mesh_sp_ranks(mesh_cases: list, sp_spec: dict) -> dict:
-    """Rank body of the gloo launch that [sp] shares with [mesh]: [mesh]'s
-    part-3 cases (``parallel/dryrun.py::run_cases``), then [sp]'s part 2."""
-    from fedml_tpu_torch.parallel.dryrun import run_cases
-
-    t0 = time.perf_counter()
-    sp = _sp_rank(sp_spec)
-    sp["seconds"] = time.perf_counter() - t0
-    return {"mesh": run_cases(mesh_cases), "sp": sp}
-
-
-def phase_sp(device: str = "cuda", mesh_rec: Optional[dict] = None):
+def phase_sp(device: str = "cuda", shared: Optional[list] = None):
     """Ring attention and sequence parallelism on the card (``parallel/
     {ring_attention,sequence,dp_sp}.py``) at the fedllm bench width
     (SP_DIMS, bf16 rounds, SGD SP_LR), 2,048 tokens a sequence.
@@ -4722,9 +4798,9 @@ def phase_sp(device: str = "cuda", mesh_rec: Optional[dict] = None):
        plain, ring); 12 flash launches per forward, all wgmma; then the fp32
        forward of ``sequence_parallel_lm`` (flash) over SP_LM_BATCH full
        sequences, and the round's variables, kept for part 2;
-    2. SP_RANKS gloo ranks sharing the card (one launch with [mesh]'s
-       part 3 when ``mesh_rec`` is given), every tensor on the card and the
-       K/V ring staged through the host: the fp32 sequence-parallel forward
+    2. SP_RANKS gloo ranks sharing the card (in ``launch_shared``'s launch
+       when given a ``shared`` list), every tensor on the card and the K/V
+       ring staged through the host: the fp32 sequence-parallel forward
        within SP_LM_TOL of part 1's; the bf16 DP×SP round (1 client x 2
        shards of 1,024) within SP_ROUND_TOL of part 1's round (relative to
        its update) and its loss within SP_LOSS_RTOL, every rank holding the
@@ -4734,6 +4810,7 @@ def phase_sp(device: str = "cuda", mesh_rec: Optional[dict] = None):
        shard and one from the ring), the bytes staged and the seconds.
 
     ``device`` "cpu" rehearses the phase on gloo (launch counts are 0)."""
+    import shutil
     import tempfile
 
     import numpy as np
@@ -4743,7 +4820,7 @@ def phase_sp(device: str = "cuda", mesh_rec: Optional[dict] = None):
     from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
     from fedml_tpu_torch.core.rng import PRNGKey
     from fedml_tpu_torch.models.transformer import transformer_lm
-    from fedml_tpu_torch.parallel.compat import launch, single_rank_group
+    from fedml_tpu_torch.parallel.compat import single_rank_group
     from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
     from fedml_tpu_torch.parallel.sequence import make_sequence_mesh, sequence_parallel_lm
 
@@ -4821,22 +4898,26 @@ def phase_sp(device: str = "cuda", mesh_rec: Optional[dict] = None):
             del state0, block, out, got, want, state, logits
         if device == "cuda":
             torch.cuda.empty_cache()
-
-        mesh_cases = mesh_rank_cases(device) if mesh_rec is not None else []
-        t0 = time.perf_counter()
-        ranks = launch(mesh_sp_ranks, SP_RANKS, mesh_cases,
-                       dict(device=device, ref=ref_path, run_dir=tmp,
-                            geometry=_sp_geometry()), device=device,
-                       backend="gloo", timeout=600.0)
-        wall = time.perf_counter() - t0
-    finally:
-        import shutil
-
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
-    sp = [r["sp"] for r in ranks]
-    if mesh_cases:
-        check_mesh_ranks([r["mesh"] for r in ranks], wall, mesh_rec, device, card,
-                         extra_s=max(x["seconds"] for x in sp))
+        raise
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[sp] part 1 phase time {rec['phase_s']:.1f} s ({card})")
+    _hand_over(RankPart("sp", SP_RANKS, _sp_rank,
+                        dict(device=device, ref=ref_path, run_dir=tmp, geometry=_sp_geometry()),
+                        lambda ranks, wall, extra: check_sp_ranks(ranks, wall, rec, device, card,
+                                                                  extra_s=extra),
+                        functools.partial(shutil.rmtree, tmp, ignore_errors=True)),
+               shared, device, card)
+    return rec
+
+
+def check_sp_ranks(sp, wall: float, rec: dict, device: str, card: str,
+                   extra_s: float = 0.0) -> None:
+    """[sp]'s part-2 gates over each rank's ``_sp_rank`` result; adds the
+    ranks' flash launches to the record; ``extra_s`` is the ranks' other
+    work in a shared launch."""
+    layers = SP_DIMS["num_layers"]
     for x in sp:
         lm, rnd, run_ = x["lm"], x["round"], x["run"]
         print(f"[sp] rank {x['rank']} of {SP_RANKS} gloo ranks on {device}: "
@@ -4871,27 +4952,601 @@ def phase_sp(device: str = "cuda", mesh_rec: Optional[dict] = None):
         fail("sp: the ranks' run.main histories differ")
     body = max(x["seconds"] for x in sp)
     rec.update(ranks=sp, launch_s=wall, rank_sp_s=body,
-               flash_launches=launches + sum(x[p]["flash"] for x in sp
-                                             for p in ("lm", "round", "run")),
-               flash_wgmma_launches=wgmma + sum(x[p]["wgmma"] for x in sp
-                                                for p in ("lm", "round", "run")),
+               flash_launches=rec["launches"] + sum(x[p]["flash"] for x in sp
+                                                    for p in ("lm", "round", "run")),
+               flash_wgmma_launches=rec["wgmma"] + sum(x[p]["wgmma"] for x in sp
+                                                       for p in ("lm", "round", "run")),
                staged_bytes_per_round=[x["round"]["staged_bytes"] for x in sp])
-    rec["phase_s"] = time.perf_counter() - t_phase
-    print(f"[sp] {SP_RANKS}-rank gloo launch {wall:.2f} s ([sp]'s work {body:.2f} s a rank); "
-          f"phase time {rec['phase_s']:.1f} s; flash launches {rec['flash_launches']} "
+    print(f"[sp] {SP_RANKS}-rank gloo launch {wall:.2f} s ([sp]'s work {body:.2f} s a rank, "
+          f"the other parts' {extra_s:.2f} s); flash launches {rec['flash_launches']} "
           f"({rec['flash_wgmma_launches']} wgmma); bytes staged through the host per "
           f"DP×SP round {rec['staged_bytes_per_round']} ({card})")
+
+
+# [tp]: tensor parallelism and rule-driven sharding (fedml_tpu_torch/parallel/
+# {tensor,gspmd,partition}.py, compress/sharded.py) at the fedllm bench width:
+# part 1 on 1-rank NCCL meshes in process, part 2 on TP_RANKS gloo ranks
+# sharing the card (in the multi-rank phases' shared launch).  TP_LM_TOL is [sp]'s
+# limit for a sharded fp32 forward (the CPU tests hold the TP forward to 1e-4,
+# where the CPU's gap is ~2e-6); TP_ROUND_TOL bounds ||θ_tp − θ_1rank|| /
+# ||θ_1rank − θ_0|| of the bf16 round (a wrong conjugate operator puts it at
+# ~1 or more).  TP_SPREAD_TOL bounds the spread of the ranks' own gradients
+# of the replicated leaves before their mean over the model axis
+# (tensor.REPLICA_SPREAD, relative to each leaf's largest): 0 where the ranks
+# agree, a few bf16 spacings at most should a card kernel's sums differ in
+# their last bits, ~1 where the ranks compute different things (the control:
+# each rank's tokens rolled by its rank).  The (2, 1) int8 + EF rounds run
+# TP_EF_LAYERS of the 12 layers (full width): their residual rows and the
+# cohort's gather cross gloo; each rank makes only its share of the store.
+TP_DIMS = SP_DIMS
+TP_L, TP_CLIENTS, TP_STEPS, TP_BATCH, TP_LR = 1024, 4, 2, 8, 3e-4
+TP_RANKS, TP_LM_BATCH, TP_LM_TOL, TP_ROUND_TOL, TP_LOSS_RTOL = 2, 2, 3e-4, 0.05, 1e-2
+TP_SPREAD_TOL = 0.02
+TP_EF_LAYERS, TP_EF_ROUNDS, TP_EF_SLOTS = 1, 2, [2, 0, 3, 1]
+TP_RUN_ARGV = ["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--comm_round", "1"]
+
+
+def _tp_geometry() -> dict:
+    """[tp]'s sizes, handed to its ranks whole (a rehearsal shrinks them)."""
+    return dict(dims=TP_DIMS, L=TP_L, clients=TP_CLIENTS, steps=TP_STEPS, batch=TP_BATCH,
+                lr=TP_LR, ranks=TP_RANKS, lm_batch=TP_LM_BATCH, ef_layers=TP_EF_LAYERS,
+                ef_rounds=TP_EF_ROUNDS, ef_slots=TP_EF_SLOTS)
+
+
+def _tp_block(g: dict, clients: int, steps: int, seed: int, slots=None) -> tuple:
+    """A cohort block: ``clients`` x ``steps`` x batch sequences of L tokens
+    from numpy seed ``seed``, the cohort's slot ids ``slots`` (default in
+    order)."""
+    import numpy as np
+
+    v, L, b = g["dims"]["vocab_size"], g["L"], g["batch"]
+    toks = np.random.RandomState(seed).randint(0, v, (clients, steps, b, L)).astype(np.int32)
+    ids = np.arange(clients, dtype=np.int32) if slots is None else np.asarray(slots, np.int32)
+    return (toks, np.roll(toks, -1, axis=-1), np.ones((clients, steps, b), np.float32),
+            np.full((clients,), steps * b * L, np.float32), np.ones(clients, np.float32), ids)
+
+
+def _tp_problems(g: dict) -> dict:
+    """Part 1's block, part 2's round block (1 client), the (2, 1) rounds'
+    shuffled cohort (2 clients a rank, 1 step) and the fp32 forward's tokens."""
+    import numpy as np
+
+    return dict(main=_tp_block(g, g["clients"], g["steps"], 0),
+                round=_tp_block(g, 1, g["steps"], 2),
+                ef=_tp_block(g, len(g["ef_slots"]), 1, 3, g["ef_slots"]),
+                lm=np.random.RandomState(1).randint(
+                    0, g["dims"]["vocab_size"], (g["lm_batch"], g["L"])).astype(np.int32))
+
+
+def _tp_models(g: dict, device, layers: Optional[int] = None):
+    """The plain bench transformer (``layers`` of them) and its bf16 SGD
+    local update."""
+    import torch
+
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.models.transformer import transformer_lm
+
+    dims = dict(g["dims"], num_layers=layers or g["dims"]["num_layers"])
+    bundle = transformer_lm(**dims, seq_len=g["L"], device=device)
+    return bundle, make_local_update(bundle, make_client_optimizer("sgd", g["lr"]), 1,
+                                     compute_dtype=torch.bfloat16)
+
+
+def _tp_ef_state(bundle, clients: int, mesh):
+    """The (2, 1) rounds' start: the variables from ``PRNGKey(0)`` and a zero
+    residual store of ``clients`` rows, this rank's share of it on ``mesh``."""
+    from fedml_tpu_torch.algorithms.fedavg import ServerState
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.parallel.partition import FEDLLM_RULES, residual_store
+
+    key = PRNGKey(0)
+    variables = bundle.init(key)
+    return ServerState(variables, (), 0, key,
+                       residual_store(mesh, variables, FEDLLM_RULES, clients))
+
+
+def _blocks_equal(laid_out: dict, whole: dict, mesh) -> bool:
+    """Every ``Shard`` of a laid-out variables tree equal, byte for byte, to
+    this rank's slice of the same leaf of ``whole`` (on the card: no
+    gather)."""
+    import torch
+
+    from fedml_tpu_torch.parallel.layout import axis_sizes, mesh_coords, shard_slice
+
+    sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
+    return all(torch.equal(s.block, shard_slice(whole[c][k], s.spec, sizes, coords))
+               for c, sub in laid_out.items() for k, s in sub.items())
+
+
+def _tp_rank(spec: dict) -> dict:
+    """[tp]'s part 2 on one of TP_RANKS gloo ranks: the fp32 TP forward
+    against part 1's 1-rank forward (and a planted fault), the bf16 DP×TP
+    round against part 1's 1-rank round, the rule rounds on (1, ranks) and
+    (ranks, 1) meshes against part 1's 1-rank rule rounds, the sharded int8
+    codec on the card against the CPU's, and ``run.main`` with
+    ``--tp_degree`` and ``--mesh``; each with its seconds, this rank's flash
+    launches (and the head counts they ran on) and the bytes summed and
+    gathered over the mesh."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import fedml_tpu_torch.ops.flash_attention as fa
+    from fedml_tpu_torch.algorithms.fedavg import ServerState
+    from fedml_tpu_torch.compress import get_codec, sharded_wire_digest, wire_encode_tree_sharded
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.experiments import run
+    from fedml_tpu_torch.parallel import compat
+    from fedml_tpu_torch.parallel import tensor as tensor_mod
+    from fedml_tpu_torch.parallel.gspmd import make_dp_tp_mesh, make_dp_tp_round_fn
+    from fedml_tpu_torch.parallel.layout import is_sharded, unshard_tree
+    from fedml_tpu_torch.parallel.mesh import make_dp_mp_mesh
+    from fedml_tpu_torch.parallel.partition import (FEDLLM_RULES, make_rule_round_fn,
+                                                    shard_by_rules)
+    from fedml_tpu_torch.parallel.tensor import make_tp_mesh, tensor_parallel_lm
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, g = spec["device"], spec["geometry"]
+    n = g["ranks"]
+    problems = _tp_problems(g)
+    setup: dict = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        res = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        setup[name] = setup.get(name, 0.0) + time.perf_counter() - t0
+        return res
+
+    ref = timed("reference load", lambda: torch.load(spec["ref"], map_location=device))
+    heads: list = []
+    held: dict = {}
+    real_flash = fa._flash_cuda
+
+    def flash_heads(q, k, v, causal, lib=None):
+        heads.append(int(q.shape[2]))
+        o, lse = real_flash(q, k, v, causal, lib)
+        if held.pop("next", False):  # this call against the plain version, same views
+            with torch.no_grad():
+                want_o, _ = fa.attention_plain(q, k, v, causal)
+            tol = TOL["bf16" if q.dtype == torch.bfloat16 else "fp32"]
+            held.update(shape=list(q.shape), strides=list(q.stride()),
+                        max_abs_err=float((o.float() - want_o.float()).abs().max()),
+                        within=bool(torch.allclose(o.float(), want_o.float(), rtol=tol,
+                                                   atol=tol)))
+        return o, lse
+
+    fa._flash_cuda = flash_heads
+
+    def measured(fn):
+        reset_launches()
+        heads.clear()
+        compat.BYTES.clear()
+        tensor_mod.REPLICA_SPREAD.clear()
+        t0 = time.perf_counter()
+        out = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seen = read_launches()
+        return out, {"s": time.perf_counter() - t0, "flash": seen["flash_attention_fwd"],
+                     "wgmma": seen["flash_attention_fwd_wgmma"], "heads": sorted(set(heads)),
+                     "bytes": {f"{kind}:{axis}": v for (kind, axis), v in compat.BYTES.items()},
+                     "spread": {a: float(v) for a, v in tensor_mod.REPLICA_SPREAD.items()}}
+
+    out = {"rank": dist.get_rank(), "setup": setup}
+    key = PRNGKey(0)
+    bundle, lu = _tp_models(g, device)
+    variables = timed("init", lambda: bundle.init(key))
+    mesh = timed("meshes", lambda: make_tp_mesh(n, device=device))
+    _, shard_params, apply, train_step = tensor_parallel_lm(mesh, **g["dims"], seq_len=g["L"])
+    sharded = timed("lay out", lambda: shard_params(variables))
+    lm = torch.from_numpy(problems["lm"])
+    logits, out["lm"] = measured(lambda: apply(sharded, lm))
+    want = ref.pop("logits")
+    real_index = tensor_mod.axis_index
+    # the planted fault: each rank takes the next rank's heads' columns
+    tensor_mod.axis_index = lambda a: (real_index(a) + 1) % n
+    try:
+        bad = timed("planted fault", lambda: apply(sharded, lm))
+    finally:
+        tensor_mod.axis_index = real_index
+    # the spread's control: one fp32 step with each rank's tokens rolled by
+    # its rank, so that the ranks' replicated gradients differ
+    skewed = torch.from_numpy(np.roll(problems["lm"], dist.get_rank(), axis=1))
+    _, out["skewed"] = measured(lambda: train_step(sharded, skewed, skewed.roll(-1, 1),
+                                                   g["lr"]))
+    specs = tensor_mod.tp_param_spec(variables, "tp")["params"]
+    out["lm"].update(
+        gap=float((logits - want).abs().max()), scale=float(want.abs().max()),
+        fault_gap=float((bad - want).abs().max()),
+        within=bool(torch.isclose(logits, want, rtol=TP_LM_TOL, atol=TP_LM_TOL).all()),
+        finite=bool(torch.isfinite(logits).all()),
+        param_bytes=sum(s.block.numel() * s.block.element_size()
+                        for s in sharded["params"].values()),
+        shape_bytes=sum(4 * v.numel() // (n if is_sharded(specs[k]) else 1)
+                        for k, v in variables["params"].items()))
+    del logits, bad, want, sharded
+
+    state0 = ServerState(variables, (), 0, key)
+    tp_mesh = timed("meshes", lambda: make_dp_tp_mesh(1, n, device=device))
+    round_fn, shard_state, shard_data = make_dp_tp_round_fn(tp_mesh, lu, variables)
+    held["next"] = True  # the round's first flash call: layer 0 on this rank's heads
+    (state, metrics), out["round"] = measured(
+        lambda: round_fn(shard_state(state0), *shard_data(problems["round"])))
+    held.pop("next", None)  # (on the CPU no kernel call took it)
+    out["round"]["flash_held"] = dict(held)
+    with compat.use_mesh(tp_mesh):
+        whole = timed("gathers", lambda: unshard_tree(state.variables))
+    num = den = 0.0
+    for k, new in whole["params"].items():
+        old, w = variables["params"][k], ref["params"][k]
+        num += float((new.double() - w.double()).square().sum())
+        den += float((w.double() - old.double()).square().sum())
+    # the sharded leaves come back from one gather on every rank; the
+    # replicated ones are each rank's own, so their bytes say whether the
+    # ranks hold one model
+    replicated = {"params": {k: whole["params"][k] for k, spec in specs.items()
+                             if not is_sharded(spec)}}
+    out["round"].update(gap=(num / max(den, 1e-300)) ** 0.5,
+                        loss=float(metrics["loss_sum"]) / max(float(metrics["count"]), 1.0),
+                        loss_gap=abs(float(metrics["loss_sum"]) - ref["loss_sum"])
+                        / abs(ref["loss_sum"]), digest=_digest(replicated))
+    del state, whole
+
+    rule_mesh = timed("meshes", lambda: make_dp_mp_mesh(1, n, device=device))
+    rule_fn, rule_state, rule_data = make_rule_round_fn(rule_mesh, lu, variables, FEDLLM_RULES)
+    (state, _), out["rule"] = measured(
+        lambda: rule_fn(rule_state(state0), *rule_data(problems["round"])))
+    out["rule"]["equal"] = _blocks_equal(state.variables, {"params": ref["params"]},
+                                         rule_mesh)
+    del state
+
+    # the sharded codec, int8, the card's blocks against the same blocks on
+    # the CPU: Block_0's attention, norms and MLP-up bias laid out by
+    # FEDLLM_RULES (column and row chunks, a split vector, replicas)
+    sub, _ = shard_by_rules(rule_mesh, {"params": {
+        k: v for k, v in variables["params"].items() if k.startswith("Block_0.") and (
+            "MultiHeadAttention" in k or "LayerNorm" in k or k.endswith("Dense_0.bias"))}},
+        FEDLLM_RULES)
+    host = {"params": {k: s._replace(block=s.block.cpu()) for k, s in sub["params"].items()}}
+    with compat.use_mesh(rule_mesh):
+        card, out["codec"] = measured(
+            lambda: wire_encode_tree_sharded(get_codec("int8"), sub, PRNGKey(7)))
+        cpu = timed("CPU encode", lambda: wire_encode_tree_sharded(get_codec("int8"), host,
+                                                                  PRNGKey(7)))
+    out["codec"].update(
+        equal=sharded_wire_digest(card) == sharded_wire_digest(cpu) and all(
+            [s["index"] for s in a["shards"]] == [s["index"] for s in b["shards"]]
+            for a, b in zip(card, cpu)),
+        shards=sum(len(e["shards"]) for e in card), digest=sharded_wire_digest(card))
+    del sub, host, card, cpu, variables, state0
+
+    ef_bundle, ef_lu = _tp_models(g, device, g["ef_layers"])
+    ef_mesh = timed("meshes", lambda: make_dp_mp_mesh(n, 1, device=device))
+    ef0 = timed("init", lambda: _tp_ef_state(ef_bundle, len(g["ef_slots"]), ef_mesh))
+    ef_fn, ef_state, ef_data = timed("EF engine", lambda: make_rule_round_fn(
+        ef_mesh, ef_lu, ef0.variables, FEDLLM_RULES, codec="int8", error_feedback=True))
+
+    def ef_rounds():
+        st, block = ef_state(ef0), ef_data(problems["ef"])
+        for _ in range(g["ef_rounds"]):
+            st, _ = ef_fn(st, *block)
+        return st
+
+    store_made = sum(s.block.numel() * s.block.element_size()
+                     for sub in ef0.residuals.values() for s in sub.values())
+    state, out["ef"] = measured(ef_rounds)
+    del ref
+    ef_ref = timed("reference load", lambda: torch.load(spec["ef_ref"], map_location=device))
+    out["ef"].update(equal=_blocks_equal(state.variables, ef_ref["variables"], ef_mesh),
+                     store_equal=_blocks_equal(state.residuals, ef_ref["store"], ef_mesh),
+                     store_bytes=store_made,
+                     store_share=sum(v.numel() * v.element_size() for sub in
+                                     ef_ref["store"].values() for v in sub.values()) // n)
+    del state, ef0, ef_ref
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    run_dir = os.path.join(spec["run_dir"], f"rank{dist.get_rank()}")
+    tp_argv = ["--tp_degree", str(n)]
+    # run_tp again under torch's deterministic algorithms: whether the ranks'
+    # replicated gradients then agree bit for bit, and which ops lack one
+    for name, extra, det in (("run_tp", tp_argv, False),
+                             ("run_mesh", ["--mesh", f"1,{n}", "--partition_rules", "fedllm"],
+                              False),
+                             ("run_tp_det", tp_argv, True)):
+        with warnings.catch_warnings(record=True) as caught, (
+                deterministic() if det else contextlib.nullcontext()):
+            warnings.simplefilter("always")
+            res, out[name] = measured(lambda extra=extra, name=name: run.main(
+                [*TP_RUN_ARGV, *extra, "--run_dir", f"{run_dir}-{name}",
+                 *(["--device", "cpu"] if device == "cpu" else [])]))
+        out[name].update(history=res["history"], mesh=res["mesh"], warned=sorted(
+            {str(w.message)[:160] for w in caught if "determinis" in str(w.message)}))
+    fa._flash_cuda = real_flash
+    out["geometry_steps"] = int(np.asarray(problems["round"][0]).shape[1])
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def phase_tp(device: str = "cuda", shared: Optional[list] = None):
+    """Tensor parallelism and rule-driven sharding on the card
+    (``parallel/{tensor,gspmd,partition}.py``, ``compress/sharded.py``) at
+    the fedllm bench width (TP_DIMS, L TP_L, bf16 rounds, SGD TP_LR).
+
+    1. 1-rank NCCL meshes, in process: one ``make_dp_tp_round_fn`` round on
+       a (1, 1) ``(clients, model)`` mesh and one ``make_rule_round_fn``
+       round under ``FEDLLM_RULES`` on a (1, 1) ``(dp, mp)`` mesh (TP_CLIENTS
+       clients x TP_STEPS steps of TP_BATCH), each byte for byte
+       ``make_round_fn``'s from the same state and block, the three warmed
+       and timed in turns; 12 flash launches per forward, all wgmma.  Then
+       part 2's references: the fp32 forward of TP_LM_BATCH sequences, the
+       bf16 round of part 2's block, and TP_EF_ROUNDS int8 + EF rule rounds
+       of TP_EF_LAYERS layers over a shuffled cohort on a 1-rank mesh.
+    2. TP_RANKS gloo ranks sharing the card (in ``launch_shared``'s launch
+       when given a ``shared`` list), every tensor on the card: tp TP_RANKS
+       on a (1,
+       TP_RANKS) mesh: the fp32 TP forward within TP_LM_TOL of part 1's (a
+       planted fault, each rank's heads from the wrong columns, beyond it),
+       the bf16 DP×TP round within TP_ROUND_TOL of part 1's update and its
+       loss within TP_LOSS_RTOL; 12 flash launches per forward per rank on
+       H / TP_RANKS heads, wgmma in bf16; each rank's parameter bytes equal
+       to the count from the shapes; the bytes summed and gathered over the
+       model axis per step.  The rule round on a (1, TP_RANKS) mesh byte
+       for byte part 1's 1-rank round; the int8 + EF rule rounds on a
+       (TP_RANKS, 1) mesh (2 clients a rank, rows crossing ranks) byte for
+       byte part 1's, the residual store too; the int8 entries of the card's
+       shards byte for byte the CPU's; ``run.main`` fedllm with
+       ``--tp_degree`` and with ``--mesh 1,TP_RANKS --partition_rules
+       fedllm`` at run.py's widths.
+
+    Returns the record, which ``check_tp_ranks`` completes once part 2 has
+    run.  ``device`` "cpu" rehearses the phase on gloo (launch counts are
+    0)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.algorithms.fedavg import ServerState, make_round_fn
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.parallel.compat import single_rank_group
+    from fedml_tpu_torch.parallel.gspmd import make_dp_tp_mesh, make_dp_tp_round_fn
+    from fedml_tpu_torch.parallel.layout import blocks
+    from fedml_tpu_torch.parallel.mesh import make_dp_mp_mesh
+    from fedml_tpu_torch.parallel.partition import FEDLLM_RULES, make_rule_round_fn
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    g = _tp_geometry()
+    layers = g["dims"]["num_layers"]
+    problems = _tp_problems(g)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def on_device(block):
+        return (*(torch.from_numpy(np.ascontiguousarray(a)).to(device) for a in block[:5]),
+                block[5])
+
+    tmp = tempfile.mkdtemp(prefix="fedml_tp_")
+    ref_path, ef_path = os.path.join(tmp, "reference.pt"), os.path.join(tmp, "ef.pt")
+    with single_rank_group(device):
+        bundle, lu = _tp_models(g, device)
+        key = PRNGKey(0)
+        variables = bundle.init(key)
+        state0 = ServerState(variables, (), 0, key)
+        tp_fn, tp_state, tp_data = make_dp_tp_round_fn(make_dp_tp_mesh(1, 1, device=device),
+                                                       lu, variables)
+        rule_fn, rule_state, rule_data = make_rule_round_fn(
+            make_dp_mp_mesh(1, 1, device=device), lu, variables, FEDLLM_RULES)
+        plain = make_round_fn(lu, device=device)
+        block = problems["main"]
+        calls = {"tp": (tp_fn, tp_state(state0), tp_data(block)),
+                 "rule": (rule_fn, rule_state(state0), rule_data(block)),
+                 "plain": (plain, state0, on_device(block))}
+        t0 = time.perf_counter()
+        for fn, st, args in calls.values():
+            fn(st, *args)
+        sync()
+        setup_s = time.perf_counter() - t0
+        times = {name: [] for name in calls}
+        out, seen = {}, {}
+        for name in ("tp", "rule", "plain", "plain", "rule", "tp"):
+            fn, st, args = calls[name]
+            first = name not in out
+            if first:
+                reset_launches()
+            t0 = time.perf_counter()
+            res = fn(st, *args)
+            sync()
+            times[name].append(time.perf_counter() - t0)
+            if first:
+                seen[name] = read_launches()
+                out[name] = res
+        want_state, want_m = out["plain"]
+        equal = {name: _same_tensors(blocks(out[name][0].variables), want_state.variables)
+                 and _same_tensors(out[name][1], want_m) for name in ("tp", "rule")}
+        fwd = g["clients"] * g["steps"]
+        loss = float(want_m["loss_sum"]) / max(float(want_m["count"]), 1.0)
+        ratio = {name: float(np.median(times[name]) / np.median(times["plain"]))
+                 for name in ("tp", "rule")}
+        rec.update(setup_s=setup_s, round_s=times, ratio=ratio, bytewise_equal=equal,
+                   loss=loss, part1_launches={k: v["flash_attention_fwd"]
+                                              for k, v in seen.items()},
+                   part1_wgmma={k: v["flash_attention_fwd_wgmma"] for k, v in seen.items()})
+        print(f"[tp] part 1 on 1-rank {device} meshes, width {g['dims']['embed_dim']}, "
+              f"{layers} layers, L {g['L']}, {g['clients']} clients x {g['steps']} steps of "
+              f"{g['batch']}, bf16: set-up {setup_s:.2f} s; round s (in turns tp, rule, plain, "
+              f"plain, rule, tp) DP×TP {[round(t, 4) for t in times['tp']]}, rule "
+              f"{[round(t, 4) for t in times['rule']]}, make_round_fn "
+              f"{[round(t, 4) for t in times['plain']]} (median ratios DP×TP "
+              f"{ratio['tp']:.3f}, rule {ratio['rule']:.3f}); loss {loss:.4f}; equal byte for "
+              f"byte {equal}; flash launches {rec['part1_launches']} (wgmma "
+              f"{rec['part1_wgmma']}) for {fwd} forwards each ({card})")
+        if not all(equal.values()):
+            fail(f"tp: a 1-rank sharded round is not make_round_fn's byte for byte: {equal}")
+        if not math.isfinite(loss):
+            fail(f"tp: non-finite loss {loss}")
+        if device == "cuda" and any(
+                v["flash_attention_fwd"] != layers * fwd
+                or v["flash_attention_fwd_wgmma"] != layers * fwd for v in seen.values()):
+            fail(f"tp: flash launches {seen}, expected {layers * fwd} a round, all wgmma")
+        del calls, out, want_state, tp_fn, rule_fn
+
+        # part 2's references, from the same state
+        logits = bundle.apply_eval(variables, torch.from_numpy(problems["lm"]).to(device))
+        ref_state, ref_m = plain(state0, *on_device(problems["round"]))
+        ef_bundle, ef_lu = _tp_models(g, device, g["ef_layers"])
+        ef_mesh = make_dp_mp_mesh(1, 1, device=device)
+        ef0 = _tp_ef_state(ef_bundle, len(g["ef_slots"]), ef_mesh)
+        ef_fn, ef_state, ef_data = make_rule_round_fn(
+            ef_mesh, ef_lu, ef0.variables, FEDLLM_RULES, codec="int8", error_feedback=True)
+        st, block = ef_state(ef0), ef_data(problems["ef"])
+        for _ in range(g["ef_rounds"]):
+            st, _ = ef_fn(st, *block)
+        torch.save({"logits": logits.cpu(), "loss_sum": float(ref_m["loss_sum"]),
+                    "params": {k: v.cpu() for k, v in ref_state.variables["params"].items()}},
+                   ref_path)
+        torch.save({name: {c: {k: v.block.cpu() for k, v in sub.items()}
+                           for c, sub in tree.items()}
+                    for name, tree in (("variables", st.variables), ("store", st.residuals))},
+                   ef_path)
+        del logits, ref_state, st, ef0, variables, state0
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec["part1_s"] = time.perf_counter() - t_phase
+    rec["rank_spec"] = dict(device=device, ref=ref_path, ef_ref=ef_path, run_dir=tmp, geometry=g)
+    _hand_over(RankPart("tp", g["ranks"], _tp_rank, rec["rank_spec"],
+                        lambda ranks, wall, extra: check_tp_ranks(ranks, wall, rec, device,
+                                                                  card, extra_s=extra),
+                        functools.partial(shutil.rmtree, tmp, ignore_errors=True)),
+               shared, device, card)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[tp] phase time: {rec['phase_s']:.1f} s ({card})")
     return rec
+
+
+def check_tp_ranks(ranks, wall: float, rec: dict, device: str, card: str,
+                   extra_s: float = 0.0) -> None:
+    """[tp]'s part-2 gates over each rank's ``_tp_rank`` result; adds the
+    ranks' flash launches to the record; ``extra_s`` is the ranks' other
+    work in a shared launch."""
+    g = rec["rank_spec"]["geometry"]
+    n, layers = g["ranks"], g["dims"]["num_layers"]
+    heads = g["dims"]["num_heads"]
+    steps = ranks[0]["geometry_steps"]
+    parts = ("lm", "skewed", "round", "rule", "codec", "ef", "run_tp", "run_mesh", "run_tp_det")
+    for x in ranks:
+        lm, rnd, rule, codec, ef = x["lm"], x["round"], x["rule"], x["codec"], x["ef"]
+        held = rnd["flash_held"]
+        spread = {name: x[name]["spread"].get(axis, 0.0) for name, axis in (
+            ("round", "model"), ("run_tp", "model"), ("rule", "mp"), ("run_mesh", "mp"),
+            ("run_tp_det", "model"))}
+        control = x["skewed"]["spread"].get("tp", 0.0)
+        step_bytes = {k: rnd["bytes"].get(f"{k}:model", 0) / steps
+                      for k in ("psum", "all_gather", "psum_scatter")}
+        rnd["model_axis_bytes_per_step"] = step_bytes
+        print(f"[tp] rank {x['rank']} of {n} gloo ranks on {device}: TP forward (fp32, "
+              f"{g['lm_batch']} x {g['L']}) {lm['s']:.3f} s, max |Δ| {lm['gap']:.3g} vs the "
+              f"1-rank forward (max |logit| {lm['scale']:.3g}, within {TP_LM_TOL}: "
+              f"{lm['within']}; planted fault {lm['fault_gap']:.3g}), flash launches "
+              f"{lm['flash']} on heads {lm['heads']}; parameter bytes {lm['param_bytes']} "
+              f"(by the shapes {lm['shape_bytes']}); DP×TP round (bf16, 1 client x {steps} "
+              f"steps) {rnd['s']:.3f} s, ||Δθ|| / ||update|| {rnd['gap']:.3g} (gate "
+              f"{TP_ROUND_TOL}), loss {rnd['loss']:.4f} (rel. gap {rnd['loss_gap']:.3g}), "
+              f"flash launches {rnd['flash']} ({rnd['wgmma']} wgmma) on heads {rnd['heads']}, "
+              f"bytes a step over the model axis: summed {step_bytes['psum']:.0f}, "
+              f"gathered {step_bytes['all_gather']:.0f}, reduce-scattered "
+              f"{step_bytes['psum_scatter']:.0f}; its first flash call held against "
+              f"attention_plain on the same views (q {held.get('shape')} strides "
+              f"{held.get('strides')}): max abs err {held.get('max_abs_err')}, within "
+              f"{TOL['bf16']}: {held.get('within')}; the ranks' replicated gradients' spread "
+              f"before their mean {spread} (gate {TP_SPREAD_TOL}; control, tokens rolled by "
+              f"rank, {control:.3g} in {x['skewed']['s']:.3f} s; run_tp_det under torch's "
+              f"deterministic algorithms {x['run_tp_det']['s']:.3f} s, ops without one "
+              f"{x['run_tp_det']['warned']}); rule round (1, {n}) "
+              f"{rule['s']:.3f} s, byte "
+              f"for byte the 1-rank round {rule['equal']}, bytes {rule['bytes']}, "
+              f"flash {rule['flash']} on heads {rule['heads']}; int8 + EF rule rounds "
+              f"({n}, 1), {g['ef_layers']} layers, {g['ef_rounds']} rounds {ef['s']:.3f} s, "
+              f"byte for byte {ef['equal']}, store {ef['store_equal']}, bytes {ef['bytes']}, "
+              f"the rank's store made {ef['store_bytes']} B (its share {ef['store_share']}); "
+              f"sharded int8 codec "
+              f"{codec['s']:.3f} s, {codec['shards']} shards, card == CPU {codec['equal']}; "
+              f"run.main --tp_degree {x['run_tp']['s']:.3f} s mesh {x['run_tp']['mesh']}, "
+              f"--mesh {x['run_mesh']['s']:.3f} s mesh {x['run_mesh']['mesh']}; set-up s "
+              f"{ {k: round(v, 3) for k, v in x['setup'].items()} }, the rest of the rank's "
+              f"{x['seconds']:.3f} s: "
+              f"{x['seconds'] - sum(x['setup'].values()) - sum(x[p]['s'] for p in parts):.3f} s; final "
+              f"{json.dumps({k: x['run_mesh']['history'][-1][k] for k in ('train_loss', 'test_loss')})} "
+              f"({card})")
+        if not (lm["within"] and lm["finite"]) or lm["fault_gap"] <= TP_LM_TOL:
+            fail(f"tp: rank {x['rank']}'s TP forward is {lm['gap']:.3g} from the 1-rank "
+                 f"forward (planted fault {lm['fault_gap']:.3g})")
+        if max(spread.values()) > TP_SPREAD_TOL or control <= TP_SPREAD_TOL:
+            fail(f"tp: rank {x['rank']}'s replicated gradients spread {spread} before their "
+                 f"mean over the model axis (control {control:.3g}; gate {TP_SPREAD_TOL})")
+        if ef["store_bytes"] != ef["store_share"]:
+            fail(f"tp: rank {x['rank']} made {ef['store_bytes']} B of the residual store, "
+                 f"its share is {ef['store_share']}")
+        if device == "cuda" and not (held.get("within") and held.get("shape") == [
+                g["batch"], g["L"], heads // n, g["dims"]["embed_dim"] // heads]):
+            fail(f"tp: rank {x['rank']}'s flash call on its heads against attention_plain: "
+                 f"{held}")
+        if lm["param_bytes"] != lm["shape_bytes"]:
+            fail(f"tp: rank {x['rank']} holds {lm['param_bytes']} B of parameters, the "
+                 f"shapes say {lm['shape_bytes']}")
+        if not (rnd["gap"] <= TP_ROUND_TOL and rnd["loss_gap"] <= TP_LOSS_RTOL):
+            fail(f"tp: rank {x['rank']}'s DP×TP round is {rnd['gap']:.3g} of the update "
+                 f"(loss {rnd['loss_gap']:.3g}) from the 1-rank round")
+        if not (rule["equal"] and ef["equal"] and ef["store_equal"] and codec["equal"]):
+            fail(f"tp: rank {x['rank']}'s rule rounds or sharded codec differ from the "
+                 f"1-rank ones: rule {rule['equal']}, EF {ef['equal']}/{ef['store_equal']}, "
+                 f"codec {codec['equal']}")
+        if device == "cuda" and (
+                lm["flash"] != layers or lm["heads"] != [heads // n]
+                or rnd["flash"] != layers * steps or rnd["wgmma"] != rnd["flash"]
+                or rnd["heads"] != [heads // n] or rule["flash"] != layers * steps
+                or rule["wgmma"] != rule["flash"] or rule["heads"] != [heads]):
+            fail(f"tp: rank {x['rank']}'s flash launches: forward {lm['flash']} on "
+                 f"{lm['heads']}, DP×TP {rnd['flash']} ({rnd['wgmma']} wgmma) on "
+                 f"{rnd['heads']}, rule {rule['flash']} ({rule['wgmma']} wgmma) on "
+                 f"{rule['heads']}: expected {layers}, {layers * steps} on {heads // n} heads, "
+                 f"{layers * steps} on {heads}")
+        for name in ("run_tp", "run_mesh", "run_tp_det"):
+            if not all(math.isfinite(x[name]["history"][-1][k])
+                       for k in ("train_loss", "test_loss")):
+                fail(f"tp: run.main ({name}) gave non-finite metrics {x[name]['history'][-1]}")
+    for name in ("run_tp", "run_mesh", "run_tp_det"):
+        if any(x[name]["history"] != ranks[0][name]["history"] for x in ranks):
+            fail(f"tp: the ranks' run.main ({name}) histories differ")
+    if len({x["round"]["digest"] for x in ranks}) != 1:
+        fail("tp: the ranks' DP×TP rounds do not gather the same bytes")
+    body = max(x["seconds"] for x in ranks)
+    rec.update(ranks=ranks, launch_s=wall, rank_tp_s=body,
+               startup_s=wall - body - extra_s,
+               flash_launches=sum(rec["part1_launches"].values())
+               + sum(x[p]["flash"] for x in ranks for p in parts),
+               flash_wgmma_launches=sum(rec["part1_wgmma"].values())
+               + sum(x[p]["wgmma"] for x in ranks for p in parts))
+    print(f"[tp] {n}-rank gloo launch {wall:.2f} s ([tp]'s work {body:.2f} s a rank); flash "
+          f"launches {rec['flash_launches']} ({rec['flash_wgmma_launches']} wgmma) ({card})")
 
 
 PHASES = ["build", "kernels", "check", "main", "fedllm", "rng", "north_star", "sim",
           "init", "compress", "pack", "zoo", "silo", "algos", "standalone", "family",
-          "imagenet", "comm", "xdevice", "tcp", "mesh", "sp"]
+          "imagenet", "comm", "xdevice", "tcp", "mesh", "tp", "sp"]
 # the phases whose ResNet-56 client forwards the kernels line's conv count sums
 CONV_PHASES = ["main", "north_star", "sim", "compress", "silo", "algos", "standalone",
                "imagenet", "xdevice", "tcp", "mesh"]
 # the phases whose transformer forwards the kernels line's flash count sums
-FLASH_PHASES = ["fedllm", "sp"]
+FLASH_PHASES = ["fedllm", "sp", "tp"]
 
 
 def main() -> int:
@@ -4962,9 +5617,18 @@ def main() -> int:
         run("comm", phase_comm)
         run("xdevice", phase_xdevice)
         run("tcp", phase_tcp)
-        # [mesh]'s gloo ranks run in [sp]'s launch when both are selected
-        run("mesh", lambda: phase_mesh(launch_ranks="sp" not in selected))
-        run("sp", lambda: phase_sp(mesh_rec=recs.get("mesh")))
+        # the multi-rank phases' gloo ranks run in one launch after them
+        shared: list = []
+        stack.callback(lambda: [p.cleanup() for p in shared if p.cleanup is not None])
+        run("mesh", lambda: phase_mesh(shared=shared))
+        run("tp", lambda: phase_tp(shared=shared))
+        run("sp", lambda: phase_sp(shared=shared))
+        if shared:
+            t0 = time.perf_counter()
+            launch_shared(shared)
+            seconds["ranks"] = time.perf_counter() - t0
+            print(f"[ranks] phase seconds: {seconds['ranks']:.1f} (the gloo ranks of "
+                  f"{', '.join(p.name for p in shared)}) ({smi})")
     total = sum(seconds.values())
     print(f"[phases] {total:.1f} s over {len(seconds)} phases: "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()) + f" ({smi})")

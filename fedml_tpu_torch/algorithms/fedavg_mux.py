@@ -82,8 +82,9 @@ from fedml_tpu_torch.obs.telemetry import get_telemetry
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
 MESH_REFUSAL = ("a muxer cohort on a device mesh (mesh=/partition_rules=) is "
-                "not ported to fedml_tpu_torch yet (ROADMAP.md, queue A item 6c: "
-                "the rule-driven sharding engine)")
+                "not ported to fedml_tpu_torch yet (ROADMAP.md, queue A item 6c-2: "
+                "a group of resident worker ranks fed cohort by cohort; the rule "
+                "engine itself is parallel/partition.py)")
 
 
 class _VirtualEndpoint(NodeManager):

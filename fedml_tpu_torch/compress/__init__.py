@@ -6,9 +6,9 @@ per-leaf and wire forms and the fused flat form the round engine runs
 (``make_round_fn(codec=..., error_feedback=...)``); ``error_feedback.py``
 the host-side EF recurrence, which the cross-device client's uploads
 (``algorithms/fedavg_cross_device.py::encode_client_upload``) carry per
-uplink stream.  The sharded wire forms of
-``fedml_tpu/compress/sharded.py`` belong to the parallel engines and are
-not ported yet (ROADMAP queue A item 6c).
+uplink stream; ``sharded.py`` the per-shard wire form of an update laid
+out over a mesh of ranks (``parallel/partition.py``), encoded where each
+block lives.
 """
 
 from fedml_tpu_torch.compress.codecs import (
@@ -34,6 +34,13 @@ from fedml_tpu_torch.compress.codecs import (
     wire_tree_digest,
 )
 from fedml_tpu_torch.compress.error_feedback import ErrorFeedback
+from fedml_tpu_torch.compress.sharded import (
+    shard_slices,
+    sharded_entry_nbytes,
+    sharded_wire_digest,
+    wire_decode_tree_sharded,
+    wire_encode_tree_sharded,
+)
 
 __all__ = [
     "BCAST_STREAM",
@@ -53,8 +60,13 @@ __all__ = [
     "jax_leaves",
     "roundtrip_flat",
     "roundtrip_tree",
+    "shard_slices",
+    "sharded_entry_nbytes",
+    "sharded_wire_digest",
     "uplink_roundtrip",
     "wire_decode_tree",
+    "wire_decode_tree_sharded",
     "wire_encode_tree",
+    "wire_encode_tree_sharded",
     "wire_tree_digest",
 ]

@@ -41,7 +41,7 @@ Transform = Tuple[Callable, Callable]  # (init(params), update(g, state, params)
 
 def _clip_by_global_norm(max_norm: float) -> Transform:
     def update(g, state, params):
-        norm = torch.sqrt(treelib.tree_sq_norm(g))
+        norm = torch.sqrt(treelib.global_sq_norm(g))
         keep = norm < max_norm
         return {k: torch.where(keep, v, v / norm.to(v.dtype) * max_norm)
                 for k, v in g.items()}, state
@@ -155,6 +155,10 @@ class LocalUpdateFn:
 
     fn: Callable  # (variables, x, y, mask, key) -> (variables, metrics)
     epochs: int
+    # the bundle it trains, and the same update built over another bundle
+    # (the parallel engines swap in their sharded model)
+    bundle: Optional[ModelBundle] = None
+    rebind: Optional[Callable[[ModelBundle], "LocalUpdateFn"]] = None
 
     def __call__(self, variables, x, y, mask, key):
         return self.fn(variables, x, y, mask, key)
@@ -191,7 +195,7 @@ def make_local_update(
             logits, new_vars = bundle.apply_train(variables, x, key)
         loss, aux = loss_fn(logits, y, m)
         if prox_mu:
-            sq = treelib.tree_sq_norm(treelib.tree_sub(params, global_params))
+            sq = treelib.global_sq_norm(treelib.tree_sub(params, global_params))
             loss = loss + 0.5 * prox_mu * sq
         return loss, new_vars, aux
 
@@ -244,7 +248,12 @@ def make_local_update(
         metrics = {**sums, "steps": real_steps}
         return {**others, "params": params}, metrics
 
-    return LocalUpdateFn(fn=local_update, epochs=epochs)
+    def rebind(other: ModelBundle) -> LocalUpdateFn:
+        return make_local_update(other, optimizer, epochs, loss_fn, prox_mu=prox_mu,
+                                 shuffle=shuffle, augment_fn=augment_fn,
+                                 compute_dtype=compute_dtype)
+
+    return LocalUpdateFn(fn=local_update, epochs=epochs, bundle=bundle, rebind=rebind)
 
 
 def make_evaluator(bundle: ModelBundle, loss_fn: LossFn = masked_softmax_ce):

@@ -172,7 +172,7 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     the global norm reaches ``max_norm``."""
     def update(g, state, params):
         del params
-        norm = treelib.tree_norm(g)
+        norm = torch.sqrt(treelib.global_sq_norm(g))  # the whole model's, when sharded
         keep = norm < max_norm
         return treelib.tree_map(
             lambda v: torch.where(keep, v, v / norm.to(v.dtype) * max_norm), g), state

@@ -8,7 +8,9 @@ state names.  ``tree_map`` walks any such nesting of dicts.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+import contextlib
+import contextvars
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -57,6 +59,42 @@ def tree_weighted_sum(trees, weights) -> Tree:
 def tree_sq_norm(tree: Tree) -> torch.Tensor:
     """Sum of squares of every leaf, in fp32."""
     return sum(leaf.float().square().sum() for leaf in tree_leaves(tree))
+
+
+_SHARDED: contextvars.ContextVar = contextvars.ContextVar("fedml_tpu_torch_sharded_leaves",
+                                                          default=None)
+
+
+@contextlib.contextmanager
+def sharded_leaves(names: Iterable[str], reduce: Callable):
+    """Inside the block, ``global_sq_norm`` reads the leaves under
+    ``names`` as this rank's blocks of leaves split over a mesh axis, and
+    ``reduce`` (the sum over that axis) completes their partial sums: the
+    tensor- and rule-parallel engines bind it around the local and server
+    updates (``parallel/{tensor,partition}.py``).  With no names it binds
+    nothing."""
+    names = frozenset(names)
+    token = _SHARDED.set((names, reduce) if names else None)
+    try:
+        yield
+    finally:
+        _SHARDED.reset(token)
+
+
+def global_sq_norm(tree: Tree) -> torch.Tensor:
+    """``tree_sq_norm`` of the whole model whose leaves ``tree`` holds:
+    under ``sharded_leaves`` a flat ``{name: Tensor}`` tree's sharded
+    leaves' squares are summed here and reduced over their axis, and the
+    replicated leaves' added once (the global-norm clip and FedProx's
+    proximal term read it)."""
+    sharded = _SHARDED.get()
+    if sharded is None:
+        return tree_sq_norm(tree)
+    names, reduce = sharded
+    part = [leaf.float().square().sum() for k, leaf in tree.items() if k in names]
+    whole = [leaf.float().square().sum() for k, leaf in tree.items() if k not in names]
+    total = reduce(sum(part)) if part else 0.0
+    return total + sum(whole) if whole else total
 
 
 def tree_norm(tree: Tree) -> torch.Tensor:

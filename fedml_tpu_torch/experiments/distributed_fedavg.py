@@ -43,7 +43,7 @@ from typing import Optional
 
 MESH_REFUSAL = ("--mesh/--partition-rules (a muxer cohort on a device mesh) "
                 "is not ported to fedml_tpu_torch yet (ROADMAP.md, queue A "
-                "item 6c: the rule-driven sharding engine)")
+                "item 6c-2: the muxed cohort on a mesh of resident worker ranks)")
 
 
 def _device(args) -> Optional[str]:
@@ -840,7 +840,7 @@ def launch(
     ``device`` is every child's ``--device``: "" runs them on the card
     (the kernels are built here once, before any child starts, so N
     children never start N compilers), "cpu" on the CPU.  ``mesh`` and
-    ``partition_rules`` raise (ROADMAP queue A item 6c).
+    ``partition_rules`` raise (ROADMAP queue A item 6c-2).
     """
     if mesh or partition_rules:
         raise NotImplementedError(MESH_REFUSAL)
@@ -1223,7 +1223,7 @@ def main(argv=None):
     # ratios measure payload, not envelope.
     p.add_argument("--codec", default="none")
     # rule-driven sharding of a muxer's cohort over a device mesh: not
-    # ported (ROADMAP queue A item 6c), so any role given them raises
+    # ported (ROADMAP queue A item 6c-2), so any role given them raises
     p.add_argument("--mesh", default="")
     p.add_argument("--partition-rules", default="")
     p.add_argument("--wire", type=int, choices=[1, 2], default=2)

@@ -24,10 +24,14 @@ cross-device zoo — ``lr`` on ``mnist`` and ``stackoverflow_lr``,
 dataset's task loss; the multi-label one adds ``test_precision`` and
 ``test_recall`` to the evaluation record; ``synthetic`` is the
 class-prototype stand-in) and ``fedllm`` on one device
-(the transformer through ``FedAvgSimulation``) or, with ``--sp_degree N``,
-on a ``(clients, sp)`` mesh of ranks (each client's sequences sharded over
-N ranks with the lax ring; run it on ranks: ``compat.launch`` or
-``torchrun --nproc_per_node W -m fedml_tpu_torch.experiments.run ...``);
+(the transformer through ``FedAvgSimulation``) or on a mesh of ranks (run
+it on ranks: ``compat.launch`` or ``torchrun --nproc_per_node W -m
+fedml_tpu_torch.experiments.run ...``): with ``--sp_degree N`` on a
+``(clients, sp)`` mesh (each client's sequences sharded over N ranks with
+the lax ring), with ``--tp_degree N`` on a ``(clients, model)`` mesh (the
+Megatron transformer over N ranks), with ``--mesh dp,mp`` the rule engine
+(``--partition_rules fedllm|resnet|file.json``, with
+``--compress/--compress_ef`` and the residual store over ``dp``);
 the standalone drivers
 ``centralized``, ``decentralized`` (gossip over
 ``SymmetricTopologyManager(n, min(2, n − 1))``, worker 0 evaluated),
@@ -45,10 +49,9 @@ history); ``--checkpoint_every/--checkpoint_dir/--resume``
 (the FedAvg-engine family), ``--crash_at_round`` with the JAX package's
 semantics, and ``--compress/--compress_ef`` (update compression with
 error feedback) on the FedAvg engine's own round kernel (FedNova builds
-its own and refuses it).  The knobs whose machinery is not ported yet
-(``tp_degree``/``mesh``/``partition_rules``) raise ``NotImplementedError``
-naming their ROADMAP item; so does ``--compress`` outside the FedAvg
-engine, which the JAX package ignores there.
+its own and refuses it) and fedllm's rule engine.  ``--compress`` outside
+those raises ``NotImplementedError`` (the JAX package ignores it there), and
+the parallel knobs outside fedllm raise ``ValueError``.
 ``--conv_variant kernel`` (the port's own flag) runs ResNet-56 with every
 3x3 conv on the Hopper kernel (centralized, decentralized and
 turboaggregate too; fedgkt, splitnn, vfl and fednas build their own
@@ -252,15 +255,21 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
         raise ValueError(
             "tp_degree and sp_degree cannot both exceed 1 (a 3-D "
             "clients x model x sp mesh is not wired up)")
-    if cfg.tp_degree > 1 or cfg.mesh or cfg.partition_rules:
-        raise _not_ported("tp_degree/mesh/partition_rules (tensor and rule-driven "
-                          "sharding)", "queue A item 6c")
+    if (cfg.tp_degree > 1 or cfg.mesh or cfg.partition_rules) and cfg.algorithm != "fedllm":
+        # the JAX entry point ignores them outside fedllm (ROADMAP queue C4);
+        # refusing beats training unsharded silently
+        raise ValueError(f"--tp_degree/--mesh/--partition_rules lay fedllm's transformer "
+                         f"out over ranks; {cfg.algorithm} has no sharded path")
+    if cfg.partition_rules and not cfg.mesh:
+        raise ValueError("--partition_rules picks the rule engine's table; it needs "
+                         "--mesh dp,mp")
     if cfg.sp_degree > 1 and cfg.algorithm != "fedllm":
         # the JAX entry point ignores the degree outside fedllm (ROADMAP
         # queue C4); refusing beats training unsharded silently
         raise ValueError(f"--sp_degree shards fedllm's sequences; {cfg.algorithm} "
                          "has no sequence-parallel path")
-    if (cfg.compress or cfg.compress_ef) and cfg.algorithm not in _RESUMABLE:
+    if ((cfg.compress or cfg.compress_ef) and cfg.algorithm not in _RESUMABLE
+            and not (cfg.algorithm == "fedllm" and cfg.mesh)):
         # the JAX package ignores these flags outside the FedAvg engine
         # (ROADMAP queue C4); refusing beats training uncompressed silently
         raise NotImplementedError(
@@ -355,6 +364,8 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
         )
         if cfg.sp_degree > 1:
             return _run_fedllm_sp(cfg, ds, bundle, vocab, device, t0, log_fn, metrics)
+        if cfg.tp_degree > 1 or cfg.mesh:
+            return _run_fedllm_sharded(cfg, ds, bundle, device, t0, log_fn, metrics)
     elif cfg.conv_variant:
         if (cfg.model, cfg.conv_variant) != ("resnet56", "kernel"):
             raise ValueError("--conv_variant kernel is ResNet-56's (--model "
@@ -388,12 +399,19 @@ def _rank_group(device):
     """The process group a rank runs in: the caller's (``compat.launch``),
     one initialized here from ``torchrun``'s environment (``WORLD_SIZE``,
     ``RANK``, ``MASTER_ADDR``/``MASTER_PORT``; NCCL on the card, one card
-    per ``LOCAL_RANK``, gloo on the CPU) and torn down after, or none."""
+    per ``LOCAL_RANK``, gloo on the CPU) and torn down after, or, for a
+    lone process, a world of one rank (``compat.single_rank_group``)."""
     import torch
     import torch.distributed as dist
 
-    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+    from fedml_tpu_torch.parallel.compat import single_rank_group
+
+    if dist.is_initialized():
         yield
+        return
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        with single_rank_group(device):
+            yield
         return
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
@@ -405,36 +423,77 @@ def _rank_group(device):
         dist.destroy_process_group()
 
 
-def _run_fedllm_sp(cfg: ExperimentConfig, ds, bundle, vocab, device, t0, log_fn,
-                   metrics) -> dict:
-    """fedllm on a ``(clients, sp)`` mesh of every rank: each client's
-    sequences sharded over ``sp_degree`` ranks with the lax ring
-    (``parallel/dp_sp.py``), the cohort over the rest.  Every rank runs
-    this loop on its block and logs the same history."""
+def _fedllm_rounds(cfg: ExperimentConfig, ds, bundle, device, round_fn, shard_data,
+                   state, log_fn, metrics, whole=lambda variables: variables) -> list:
+    """The fedllm rounds on a mesh of ranks: the one-device driver's sampler,
+    pack, dropout and evaluation cadence, on every rank over its block.
+    ``whole(variables)`` gives the evaluator the whole model (a laid-out
+    state is gathered).  Every rank logs the same history."""
     import numpy as np
     import torch
 
-    from fedml_tpu_torch.algorithms.fedavg import ServerState, resolve_compute_dtype
-    from fedml_tpu_torch.core.client import (eval_summary, make_client_optimizer,
-                                             make_evaluator)
+    from fedml_tpu_torch.core.client import eval_summary, make_evaluator
     from fedml_tpu_torch.core.rng import PRNGKey
     from fedml_tpu_torch.core.sampling import host_sample_ids, inject_dropout
     from fedml_tpu_torch.core.types import (batch_eval_pack, cohort_steps_per_epoch,
                                             pack_clients, to_device)
+
+    K = min(cfg.client_num_per_round, ds.num_clients)
+    steps = cohort_steps_per_epoch(ds, cfg.batch_size)
+    evaluator = make_evaluator(bundle)
+    test = to_device(batch_eval_pack(ds.test_x, ds.test_y, max(cfg.batch_size, 64)), device)
+    hist = []
+    for r in range(cfg.comm_round):
+        ids = host_sample_ids(cfg.seed, r, ds.num_clients, K)
+        pack = pack_clients(ds, ids, cfg.batch_size, steps_per_epoch=steps,
+                            seed=cfg.seed, reuse_buffers=True)
+        participation = np.ones(K, np.float32)
+        if cfg.drop_prob > 0.0:
+            participation = inject_dropout(
+                PRNGKey(cfg.seed), r, torch.from_numpy(participation),
+                cfg.drop_prob).numpy()
+        state, m = round_fn(state, *shard_data((
+            pack.x, pack.y, pack.mask, pack.num_samples, participation,
+            np.asarray(ids, np.int32))))
+        row = {"round": r, **{k: float(v) for k, v in m.items()}}
+        if row.get("count"):
+            row["train_loss"] = row["loss_sum"] / row["count"]
+        if r % cfg.frequency_of_the_test == 0 or r == cfg.comm_round - 1:
+            row.update(eval_summary(evaluator(whole(state.variables), *test)))
+        hist.append(row)
+        if metrics is not None:
+            metrics.log(row, step=r)
+        if log_fn:
+            log_fn(row)
+    return hist
+
+
+def _mesh_width(count: int, degree: int, K: int) -> int:
+    """The cohort's width ``dp`` of ``count`` ranks at a parallel
+    ``degree``, with JAX's refusals."""
+    if count % degree:
+        raise ValueError(f"parallel degree {degree} does not divide device count {count}")
+    dp = count // degree
+    if K % dp:
+        raise ValueError(f"cohort {K} not divisible by dp width {dp}")
+    return dp
+
+
+def _run_fedllm_sp(cfg: ExperimentConfig, ds, bundle, vocab, device, t0, log_fn,
+                   metrics) -> dict:
+    """fedllm on a ``(clients, sp)`` mesh of every rank: each client's
+    sequences sharded over ``sp_degree`` ranks with the lax ring
+    (``parallel/dp_sp.py``), the cohort over the rest."""
+    from fedml_tpu_torch.algorithms.fedavg import ServerState, resolve_compute_dtype
+    from fedml_tpu_torch.core.client import make_client_optimizer
+    from fedml_tpu_torch.core.rng import PRNGKey
     from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
     from fedml_tpu_torch.parallel.mesh import describe_mesh, world_size
 
     seq_len = int(ds.train_x.shape[1])
     degree = cfg.sp_degree
     with _rank_group(device):
-        count = world_size()
-        if count % degree:
-            raise ValueError(f"parallel degree {degree} does not divide device count "
-                             f"{count}")
-        dp = count // degree
-        K = min(cfg.client_num_per_round, ds.num_clients)
-        if K % dp:
-            raise ValueError(f"cohort {K} not divisible by dp width {dp}")
+        dp = _mesh_width(world_size(), degree, min(cfg.client_num_per_round, ds.num_clients))
         if seq_len % degree:
             raise ValueError(f"sequence length {seq_len} not divisible by sp_degree "
                              f"{degree}")
@@ -447,35 +506,77 @@ def _run_fedllm_sp(cfg: ExperimentConfig, ds, bundle, vocab, device, t0, log_fn,
             epochs=cfg.epochs, compute_dtype=resolve_compute_dtype(cfg.compute_dtype or None),
             block_size=max(1, min(512, seq_len // degree)))
         key = PRNGKey(cfg.seed)
-        state = ServerState(init_fn(key), (), 0, key)
-        steps = cohort_steps_per_epoch(ds, cfg.batch_size)
-        # the one-device fedllm's evaluator and cadence, on every rank
-        evaluator = make_evaluator(bundle)
-        test = to_device(batch_eval_pack(ds.test_x, ds.test_y, max(cfg.batch_size, 64)),
-                         device)
-        hist = []
-        for r in range(cfg.comm_round):
-            ids = host_sample_ids(cfg.seed, r, ds.num_clients, K)
-            pack = pack_clients(ds, ids, cfg.batch_size, steps_per_epoch=steps,
-                                seed=cfg.seed, reuse_buffers=True)
-            participation = np.ones(K, np.float32)
-            if cfg.drop_prob > 0.0:
-                participation = inject_dropout(
-                    PRNGKey(cfg.seed), r, torch.from_numpy(participation),
-                    cfg.drop_prob).numpy()
-            state, m = round_fn(state, *shard_data((
-                pack.x, pack.y, pack.mask, pack.num_samples, participation,
-                np.asarray(ids, np.int32))))
-            row = {"round": r, **{k: float(v) for k, v in m.items()}}
-            if row.get("count"):
-                row["train_loss"] = row["loss_sum"] / row["count"]
-            if r % cfg.frequency_of_the_test == 0 or r == cfg.comm_round - 1:
-                row.update(eval_summary(evaluator(state.variables, *test)))
-            hist.append(row)
-            if metrics is not None:
-                metrics.log(row, step=r)
-            if log_fn:
-                log_fn(row)
+        hist = _fedllm_rounds(cfg, ds, bundle, device, round_fn, shard_data,
+                              ServerState(init_fn(key), (), 0, key), log_fn, metrics)
+        return {"history": hist, "final": hist[-1], "mesh": describe_mesh(mesh)["axes"],
+                "wall_s": time.time() - t0}
+
+
+def _run_fedllm_sharded(cfg: ExperimentConfig, ds, bundle, device, t0, log_fn,
+                        metrics) -> dict:
+    """fedllm with the model laid out over ranks: ``--tp_degree N`` runs the
+    DP×TP round on a ``(clients, model)`` mesh of every rank
+    (``parallel/gspmd.py``, the Megatron transformer over ``N`` ranks, the
+    cohort over the rest); ``--mesh dp,mp`` the rule engine
+    (``parallel/partition.py``) under ``--partition_rules`` (default
+    ``fedllm``), with ``--compress/--compress_ef`` and the residual store's
+    client rows over ``dp``.  Evaluation gathers the model on every rank."""
+    from fedml_tpu_torch.algorithms.fedavg import ServerState, resolve_compute_dtype
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.parallel.compat import use_mesh
+    from fedml_tpu_torch.parallel.layout import unshard_tree
+    from fedml_tpu_torch.parallel.mesh import describe_mesh, mesh_from_spec, world_size
+
+    K = min(cfg.client_num_per_round, ds.num_clients)
+    with _rank_group(device):
+        count = world_size()
+        if cfg.mesh:
+            mesh = mesh_from_spec(cfg.mesh, device=device)  # too few ranks: its ValueError
+            dp, mp = (describe_mesh(mesh)["axes"][a] for a in ("dp", "mp"))
+            if dp * mp != count:
+                raise ValueError(f"mesh {dp}x{mp} spans {dp * mp} of the run's {count} "
+                                 "ranks; launch as many ranks as the mesh has positions")
+            _mesh_width(count, mp, K)
+        else:
+            dp = _mesh_width(count, cfg.tp_degree, K)
+        opt = make_client_optimizer(cfg.client_optimizer, cfg.lr, momentum=cfg.momentum,
+                                    weight_decay=cfg.wd)
+        lu = make_local_update(bundle, opt, epochs=cfg.epochs,
+                               compute_dtype=resolve_compute_dtype(cfg.compute_dtype or None))
+        key = PRNGKey(cfg.seed)
+        variables = bundle.init(key)
+        if cfg.mesh:
+            from fedml_tpu_torch.parallel.partition import (make_rule_round_fn,
+                                                            residual_store, resolve_rules)
+
+            codec = cfg.compress or None
+            ef = bool(cfg.compress_ef) and codec is not None
+            table = resolve_rules(cfg.partition_rules or "fedllm")
+            residuals = ()
+            if ef:
+                if ds.num_clients % dp:
+                    raise ValueError(
+                        f"client_num_in_total {ds.num_clients} not divisible by dp width "
+                        f"{dp} (the EF residual store shards its client rows over dp)")
+                # this rank's rows and blocks only: the store is never whole
+                residuals = residual_store(mesh, variables, table, ds.num_clients)
+            round_fn, shard_state, shard_data = make_rule_round_fn(
+                mesh, lu, variables, table, codec=codec, error_feedback=ef)
+            state = ServerState(variables, (), 0, key, residuals)
+        else:
+            from fedml_tpu_torch.parallel.gspmd import make_dp_tp_mesh, make_dp_tp_round_fn
+
+            mesh = make_dp_tp_mesh(dp, cfg.tp_degree, device=device)
+            round_fn, shard_state, shard_data = make_dp_tp_round_fn(mesh, lu, variables)
+            state = ServerState(variables, (), 0, key)
+
+        def whole(laid_out):
+            with use_mesh(mesh):
+                return unshard_tree(laid_out)
+
+        hist = _fedllm_rounds(cfg, ds, bundle, device, round_fn, shard_data,
+                              shard_state(state), log_fn, metrics, whole)
         return {"history": hist, "final": hist[-1], "mesh": describe_mesh(mesh)["axes"],
                 "wall_s": time.time() - t0}
 

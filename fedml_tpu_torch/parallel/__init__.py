@@ -18,10 +18,17 @@ NCCL on the card.
   blockwise ring and the flash ring) over a sequence-sharded axis.
 - ``sequence.py`` — the sequence-parallel transformer LM.
 - ``dp_sp.py`` — FedAvg rounds on a ``(clients, sp)`` mesh.
+- ``layout.py`` — sharded leaves (``Shard``: a rank's block of a leaf laid
+  out by a spec), their slices and gathers.
+- ``tensor.py`` — the Megatron tensor-parallel transformer.
+- ``gspmd.py`` — FedAvg rounds on a ``(clients, model)`` mesh with the
+  tensor-parallel transformer.
+- ``partition.py`` — the partition-rule tables and the rule engine's round
+  on a ``(dp, mp)`` mesh.
 - ``dryrun.py`` — ``dryrun_multichip``, the multi-device check, and the
   rank bodies of the CPU parity tests.
 
-Tensor, pipeline and expert parallelism (``fedml_tpu/parallel/{tensor,
-gspmd,partition,pipeline,expert}.py``) are not ported yet (ROADMAP.md,
-queue A items 6c-6d).
+Pipeline and expert parallelism (``fedml_tpu/parallel/{pipeline,
+expert}.py``) are not ported yet (ROADMAP.md, queue A item 6d), nor the
+muxed cohort on a mesh (item 6c-2).
 """

@@ -13,13 +13,17 @@ across CPU processes, NCCL on the card.
 - ``shard_map(f, mesh=)`` binds ``mesh`` for the collectives inside
   ``f``.  Each rank already holds its own block, so nothing is split or
   gathered on the way in or out.  ``use_mesh`` is the same as a context.
-- ``psum``, ``ppermute``, ``all_gather`` (``tiled=True`` concatenates, as
-  JAX's), ``axis_index`` and ``axis_size`` take an axis name or a tuple
-  of names (the flattened, row-major axis, as JAX's), over the bound mesh.
-  A tree of tensors travels as one buffer per dtype.  ``psum`` and
-  ``ppermute`` are differentiable, with JAX's transposes (``psum`` of the
-  cotangents; ``ppermute`` along the inverse permutation); every rank runs
-  the same graph, so the backward's collectives meet in the same order.
+- ``psum``, ``ppermute``, ``axis_index`` and ``axis_size`` take an axis
+  name or a tuple of names (the flattened, row-major axis, as JAX's), over
+  the bound mesh; ``all_gather`` (along any dimension; ``tiled=True``
+  concatenates, as JAX's) and ``psum_scatter`` one name.  A tree of
+  tensors travels as one buffer per dtype in ``psum`` and ``ppermute``.
+  ``psum``, ``ppermute`` and ``all_gather`` are differentiable, with JAX's
+  transposes (``psum`` of the cotangents; ``ppermute`` along the inverse
+  permutation; ``psum_scatter``); every rank runs the same graph, so the
+  backward's collectives meet in the same order.  Over an axis of one
+  rank each is its operand, and nothing is sent.  ``BYTES`` counts what
+  each collective moved, by collective and axis.
   Under gloo, ``ppermute`` stages a card buffer through host memory.
 - ``single_rank_group()`` makes this process a world of one rank (a
   1-rank mesh in process, beside the single-device code it must equal).
@@ -163,11 +167,24 @@ def _unpack(leaves, buffers) -> list:
     return out
 
 
+# the bytes each collective has moved in this process, by (collective, axis):
+# a buffer's bytes once per all-reduce, a gather's result, a reduce-scatter's
+# input (chip_smoke's [tp] reads the model axis's)
+BYTES: dict = {}
+
+
+def _count(kind: str, axis: str, nbytes: int) -> None:
+    BYTES[(kind, axis)] = BYTES.get((kind, axis), 0) + nbytes
+
+
 def _psum_leaves(mesh, leaves, axis_name: AxisName) -> list:
     for a in _axes(axis_name):
+        if _dim_size(mesh, a) == 1:  # a sum over one rank is its operand
+            continue
         bufs = _buffers(leaves)
         for _, flat in bufs.values():
             dist.all_reduce(flat, group=mesh.get_group(a))
+            _count("psum", a, flat.numel() * flat.element_size())
         leaves = _unpack(leaves, bufs)
     return leaves
 
@@ -207,6 +224,7 @@ def psum(x, axis_name: AxisName):
     if _differentiable(leaves):
         return _rebuild(x, list(_PSum.apply(mesh, axis_name, *leaves)))
     return _rebuild(x, _psum_leaves(mesh, leaves, axis_name))
+
 
 
 def _ppermute_leaves(mesh, leaves, axis_name: str, perm) -> list:
@@ -281,20 +299,83 @@ def ppermute(x, axis_name: str, perm: Sequence[Tuple[int, int]]):
 ppermute.staged_bytes = 0
 
 
-def all_gather(x, axis_name: str, *, tiled: bool = True):
-    """Every rank's ``x`` in axis order: concatenated along the leading
-    axis (``tiled=True``) or stacked on a new one."""
-    mesh = current_mesh()
+def _gather_leaf(mesh, leaf, axis_name: str, axis: int, tiled: bool):
+    if _dim_size(mesh, axis_name) == 1:
+        return leaf if tiled else leaf.unsqueeze(axis)
+    leaf = leaf.contiguous()
+    parts = [torch.empty_like(leaf) for _ in range(_dim_size(mesh, axis_name))]
+    dist.all_gather(parts, leaf, group=mesh.get_group(axis_name))
+    _count("all_gather", axis_name, len(parts) * leaf.numel() * leaf.element_size())
+    return torch.cat(parts, axis) if tiled else torch.stack(parts, axis)
+
+
+def _scatter_leaf(mesh, leaf, axis_name: str, dim: int, tiled: bool):
+    """The sum of ``leaf`` over the axis, this rank's chunk along ``dim``
+    (``tiled``) or its index there.  gloo all-reduces and slices (it has
+    no reduce-scatter in every torch build; the sums are the same); NCCL
+    reduce-scatters."""
     group = mesh.get_group(axis_name)
-    n = _dim_size(mesh, axis_name)
+    n, i = _dim_size(mesh, axis_name), mesh.get_local_rank(axis_name)
+    size = leaf.shape[dim]
+    if (size % n) if tiled else size != n:
+        raise ValueError(f"psum_scatter: dimension {dim} of shape {tuple(leaf.shape)} "
+                         f"does not split over the {axis_name!r} axis of {n}")
+    if n == 1:
+        return leaf if tiled else leaf.squeeze(dim)
+    _count("psum_scatter", axis_name, leaf.numel() * leaf.element_size())
+    if dist.get_backend(group) == "gloo":
+        total = leaf.detach().clone().contiguous()
+        dist.all_reduce(total, group=group)
+        out = total.narrow(dim, i * (size // n), size // n)
+    else:
+        front = leaf.detach().movedim(dim, 0).contiguous()
+        out = front.new_empty((size // n, *front.shape[1:]))
+        dist.reduce_scatter_tensor(out, front, group=group)
+        out = out.movedim(0, dim)
+    return out.contiguous() if tiled else out.squeeze(dim).contiguous()
+
+
+class _AllGather(torch.autograd.Function):
+    """``all_gather`` under autograd; its transpose is ``psum_scatter`` of
+    the cotangent (JAX's): the cotangents are summed over the axis and this
+    rank keeps its own chunk."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis_name, axis, tiled, leaf):
+        ctx.args = (mesh, axis_name, axis, tiled)
+        return _gather_leaf(mesh, leaf, axis_name, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis_name, axis, tiled = ctx.args
+        return None, None, None, None, _scatter_leaf(mesh, grad, axis_name, axis, tiled)
+
+
+def all_gather(x, axis_name: str, *, axis: int = 0, tiled: bool = True):
+    """Every rank's ``x`` in axis order: concatenated along dimension
+    ``axis`` (``tiled=True``) or stacked on a new dimension there.
+    Differentiable: the backward is ``psum_scatter`` of the cotangent along
+    the same dimension (JAX's transpose)."""
+    mesh = current_mesh()
 
     def gather(leaf):
-        leaf = leaf.contiguous()
-        parts = [torch.empty_like(leaf) for _ in range(n)]
-        dist.all_gather(parts, leaf, group=group)
-        return torch.cat(parts) if tiled else torch.stack(parts)
+        if torch.is_grad_enabled() and leaf.requires_grad:
+            return _AllGather.apply(mesh, axis_name, axis, tiled, leaf)
+        return _gather_leaf(mesh, leaf, axis_name, axis, tiled)
 
     return _rebuild(x, [gather(leaf) for leaf in _leaves(x)])
+
+
+def psum_scatter(x, axis_name: str, *, scatter_dimension: int = 0, tiled: bool = True):
+    """The sum of ``x`` over the axis, scattered: each rank gets its chunk
+    of dimension ``scatter_dimension`` (``tiled=True``: the dimension
+    splits evenly over the axis) or, untiled, its index along a dimension
+    of the axis's size, which is dropped (``lax.psum_scatter``).  Not
+    differentiable."""
+    mesh = current_mesh()
+    return _rebuild(x, [_scatter_leaf(mesh, leaf, axis_name, scatter_dimension, tiled)
+                        for leaf in _leaves(x)])
+
 
 
 # ---------------------------------------------------------------------------

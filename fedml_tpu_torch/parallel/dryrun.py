@@ -20,9 +20,15 @@ same inputs:
 - **dp_sp** (even ``n``) — a ``make_dp_sp_round_fn`` round on a ``(2,
   n/2)`` ``(clients, sp)`` mesh against ``make_round_fn`` over the plain
   transformer with ``blockwise_attention`` on one device.
+- **dp_tp** (even ``n``) — a ``make_dp_tp_round_fn`` round on an ``(n/2,
+  2)`` ``(clients, model)`` mesh (one client a row) against
+  ``make_round_fn`` on one device.
+- **tp** — one SGD step of ``tensor_parallel_lm`` over a 1-D ``tp`` mesh of
+  every rank (4 heads: on 8 ranks every rank computes every head) against
+  the same step of the plain transformer on one device.
 
-The JAX dryrun's dp×tp, tp, pp and ep parts need the engines of ROADMAP
-queue A items 6c-6d, which are not ported yet; they are not run here.
+The JAX dryrun's pp and ep parts need the engines of ROADMAP queue A item
+6d, which are not ported yet; they are not run here.
 
 The ``*_case`` functions are rank bodies: each runs on every rank of a
 launch, builds its problem from a plain spec (numpy in, numpy out) and
@@ -44,21 +50,33 @@ from fedml_tpu_torch.algorithms.base_framework import make_compiled_round
 from fedml_tpu_torch.algorithms.hierarchical import HierarchicalSimulation
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+from fedml_tpu_torch.core.optrepo import get_server_optimizer
 from fedml_tpu_torch.core.rng import PRNGKey
 from fedml_tpu_torch.core.topology import ring_topology
 from fedml_tpu_torch.core.types import pack_clients
 from fedml_tpu_torch.data.synthetic import synthetic_classification
 from fedml_tpu_torch.models.linear import logistic_regression
-from fedml_tpu_torch.models.transformer import transformer_lm
+from fedml_tpu_torch.models.base import functional_call
+from fedml_tpu_torch.models.transformer import Block, transformer_lm
 from fedml_tpu_torch.models.resnet import resnet20
 from fedml_tpu_torch.parallel.compat import (all_gather, axis_index, axis_size, launch,
                                              mesh_device, ppermute, psum, shard_map,
                                              use_mesh)
+from fedml_tpu_torch.compress import get_codec, wire_decode_tree_sharded, wire_encode_tree_sharded
+from fedml_tpu_torch.parallel import tensor as tensor_mod
 from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
+from fedml_tpu_torch.parallel.gspmd import (make_dp_tp_mesh, make_dp_tp_round_fn,
+                                            opt_state_sharding_like)
+from fedml_tpu_torch.parallel.layout import (Shard, axis_sizes, mesh_coords, shard_slice,
+                                             specs_of, unshard_tree)
 from fedml_tpu_torch.parallel.mesh import describe_mesh, make_dp_mp_mesh, mesh_from_spec
+from fedml_tpu_torch.parallel.partition import (FEDLLM_RULES, make_rule_round_fn,
+                                                residual_store, resolve_rules,
+                                                shard_by_rules)
 from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention, ring_attention,
                                                      ring_flash_attention)
 from fedml_tpu_torch.parallel.sequence import make_sequence_mesh, sequence_parallel_lm
+from fedml_tpu_torch.parallel.tensor import make_tp_mesh, tensor_parallel_lm
 from fedml_tpu_torch.parallel.spmd import (
     host_client_range,
     hierarchical_pack,
@@ -398,19 +416,299 @@ def dp_sp_case(spec: Dict) -> Dict:
 
 def run_main_case(spec: Dict) -> Dict:
     """``experiments.run.main(argv)`` on this rank, its metrics under
-    ``run_dir/rank<r>``: the history, the final row and the mesh."""
+    ``run_dir/rank<r>``: the history, the final row and the mesh; with
+    ``refused`` the ``ValueError`` it raises instead."""
     import os
 
     from fedml_tpu_torch.experiments import run
 
-    out = run.main([*spec["argv"], "--run_dir",
-                    os.path.join(spec["run_dir"], f"rank{dist.get_rank()}")])
+    argv = [*spec["argv"], "--run_dir",
+            os.path.join(spec["run_dir"], f"rank{dist.get_rank()}")]
+    if spec.get("refused"):
+        try:
+            run.main(argv)
+        except ValueError as e:
+            return {"error": str(e)}
+        return {"error": None}
+    out = run.main(argv)
     return {k: out[k] for k in ("history", "final", "mesh")}
+
+
+def _tp_dims(spec: Dict) -> Dict:
+    return {k: spec[k] for k in ("vocab_size", "embed_dim", "num_heads", "num_layers",
+                                 "seq_len")}
+
+
+def tp_case(spec: Dict) -> Dict:
+    """``tensor_parallel_lm`` over a 1-D ``tp`` mesh of the world, the
+    variables from ``PRNGKey(key)``: the forward of ``tokens``, this rank's
+    blocks of the leaves named in ``blocks``, every leaf's spec; with
+    ``steps``, that many ``train_step``s at ``lr`` on ``targets`` (the
+    losses, the specs after, the whole variables gathered, and the largest
+    spread of the ranks' replicated gradients, ``tensor.REPLICA_SPREAD``);
+    ``skew`` rolls each rank's tokens by its rank, so that the ranks
+    disagree.  A layout that does not divide returns its ``error``."""
+    mesh = make_tp_mesh(device=spec["device"])
+    try:
+        bundle, shard_params, apply, train_step = tensor_parallel_lm(mesh, **_tp_dims(spec))
+        variables = shard_params(bundle.init(PRNGKey(spec["key"])))
+    except ValueError as e:
+        return {"error": str(e)}
+    out: Dict[str, Any] = {"logits": apply(variables, spec["tokens"]),
+                           "blocks": {k: variables["params"][k].block
+                                      for k in spec.get("blocks", ())},
+                           "specs": specs_of(variables)["params"], "losses": []}
+    tokens = (np.roll(spec["tokens"], dist.get_rank(), axis=1) if spec.get("skew")
+              else spec["tokens"])
+    tensor_mod.REPLICA_SPREAD.clear()
+    for _ in range(spec.get("steps", 0)):
+        variables, loss = train_step(variables, tokens, spec["targets"], spec["lr"])
+        out["losses"].append(float(loss))
+    if spec.get("steps"):
+        out["spread"] = float(tensor_mod.REPLICA_SPREAD.get("tp", 0.0))
+        out["specs_after"] = specs_of(variables)["params"]
+        with use_mesh(mesh):
+            out["variables"] = unshard_tree(variables)
+    if spec.get("single") and dist.get_rank() == 0:
+        out["single"] = _plain_steps(bundle, bundle.init(PRNGKey(spec["key"])), spec)
+    return out
+
+
+def _plain_steps(bundle, variables, spec: Dict) -> Dict:
+    """``spec["steps"]`` SGD steps of the plain bundle on one device on the
+    causal-LM loss of ``tensor_parallel_lm``'s ``train_step`` (its oracle)."""
+    dev = bundle.device
+    tokens, targets = (torch.as_tensor(np.asarray(spec[k])).to(dev)
+                       for k in ("tokens", "targets"))
+    losses = []
+    for _ in range(spec["steps"]):
+        params = {k: v.detach().requires_grad_(True) for k, v in variables["params"].items()}
+        logp = torch.log_softmax(bundle.apply_eval({"params": params}, tokens).float(), -1)
+        loss = -logp.gather(-1, targets.long()[..., None])[..., 0].mean()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        variables = {"params": {k: (p - spec["lr"] * g).detach()
+                                for (k, p), g in zip(params.items(), grads)}}
+        losses.append(float(loss.detach()))
+    return {"variables": variables, "losses": losses}
+
+
+def _row_parallel_psum(x, axis):
+    """A row-parallel sum whose backward psums the cotangent (``compat.psum``,
+    JAX's transpose of a psum): the wrong operator at a row-parallel output."""
+    return psum(x, axis)
+
+
+def tp_grads_case(spec: Dict) -> Dict:
+    """One ``TPBlock`` over a 1-D ``tp`` mesh of the world against the
+    plain ``Block`` on this rank: the gradients of ``Σ out · cot`` with
+    respect to every parameter (this rank's chunk of the whole block's) and
+    to the input, from the whole parameters ``params`` (names under
+    ``Block_0``); ``wrong`` the same with a psum-backward row-parallel sum."""
+    mesh = make_tp_mesh(device=spec["device"])
+    dev = mesh_device(mesh)
+    E, H = spec["embed_dim"], spec["num_heads"]
+    tp = axis_sizes(mesh)["tp"]
+    whole = {k: torch.from_numpy(np.asarray(v)).to(dev) for k, v in spec["params"].items()}
+    specs = tensor_mod.tp_param_spec({"params": {f"Block_0.{k}": v for k, v in whole.items()}},
+                                     "tp")["params"]
+    x, cot = (torch.from_numpy(np.asarray(spec[k])).to(dev) for k in ("x", "cot"))
+    sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
+
+    def grads(module, params):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+        xin = x.clone().requires_grad_(True)
+        out = functional_call(module, leaves, (xin,))
+        g = torch.autograd.grad((out * cot).sum(), [*leaves.values(), xin])
+        return dict(zip(leaves, g[:-1])), g[-1]
+
+    plain_g, plain_dx = grads(Block(E, H), whole)
+    mine = {k: shard_slice(v, specs[f"Block_0.{k}"], sizes, coords) for k, v in whole.items()}
+    out = {"want": {k: shard_slice(g, specs[f"Block_0.{k}"], sizes, coords)
+                    for k, g in plain_g.items()}, "want_dx": plain_dx}
+    with use_mesh(mesh):
+        out["got"], out["got_dx"] = grads(tensor_mod.TPBlock(E, H, tp, "tp"), mine)
+        right = tensor_mod.reduce_from_tp
+        tensor_mod.reduce_from_tp = _row_parallel_psum
+        try:
+            out["wrong"], out["wrong_dx"] = grads(tensor_mod.TPBlock(E, H, tp, "tp"), mine)
+        finally:
+            tensor_mod.reduce_from_tp = right
+    return out
+
+
+def _lm_bundle(spec: Dict, device):
+    return transformer_lm(**_tp_dims(spec), device=device)
+
+
+def dp_tp_case(spec: Dict) -> Dict:
+    """One ``make_dp_tp_round_fn`` round on a ``(clients, model)`` mesh of
+    ``spec["mesh"]`` over the global block ``data``, the client optimizer
+    ``opt`` (FedProx's ``prox_mu`` if given), the variables and key from
+    ``PRNGKey(key)``; with ``fedadam`` the server runs Adam (lr 0.01) with its moments laid out
+    like their parameters.  Returns the specs before and after, the whole
+    variables gathered, the metrics, the optimizer state's 2-D leaves'
+    (block shape, spec) and the largest spread of the ranks' replicated
+    gradients; with ``single`` rank 0 also runs ``make_round_fn`` on one
+    device."""
+    from fedml_tpu_torch.algorithms.fedopt import make_fedopt_server_update
+
+    mesh = make_dp_tp_mesh(*spec["mesh"], device=spec["device"])
+    dev = mesh_device(mesh)
+    bundle = _lm_bundle(spec, dev)
+    lu = make_local_update(bundle, make_client_optimizer(**spec["opt"]), epochs=1,
+                           prox_mu=spec.get("prox_mu", 0.0))
+    key = PRNGKey(spec["key"])
+    variables = bundle.init(key)
+    opt_state, kw = (), {}
+    if spec.get("fedadam"):
+        server_opt = get_server_optimizer("adam", lr=0.01)
+        opt_state = server_opt.init(variables["params"])
+        kw = dict(server_update=make_fedopt_server_update(server_opt),
+                  opt_state_sharding=opt_state_sharding_like(mesh, variables, opt_state,
+                                                             axis="model"))
+    round_fn, shard_state, shard_data = make_dp_tp_round_fn(mesh, lu, variables, **kw)
+    state = shard_state(ServerState(variables, opt_state, 0, key))
+    out: Dict[str, Any] = {"mesh": describe_mesh(mesh),
+                           "specs": specs_of(state.variables)["params"]}
+    tensor_mod.REPLICA_SPREAD.clear()
+    new, metrics = round_fn(state, *shard_data(spec["data"]))
+    out["spread"] = float(tensor_mod.REPLICA_SPREAD.get("model", 0.0))
+    with use_mesh(mesh):
+        out.update(specs_after=specs_of(new.variables)["params"], metrics=metrics,
+                   round_idx=new.round_idx, variables=unshard_tree(new.variables))
+    out["opt_leaves"] = [(tuple(leaf.block.shape), leaf.spec)
+                         for leaf in _shards_of(new.opt_state) if len(leaf.shape) == 2]
+    if spec.get("single") and dist.get_rank() == 0:
+        ref, ref_m = make_round_fn(lu, device=dev, **({"server_update": kw["server_update"]}
+                                                      if kw else {}))(
+            ServerState(variables, opt_state, 0, key),
+            *(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in spec["data"][:5]),
+            spec["data"][5])
+        out["single"] = {"variables": ref.variables, "metrics": ref_m}
+    return out
+
+
+def _shards_of(tree) -> list:
+    """The ``Shard``s of a tree (dicts, lists, tuples)."""
+    if isinstance(tree, Shard):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _shards_of(v)]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _shards_of(v)]
+    return []
+
+
+def _digest(variables: Dict) -> str:
+    """sha256 over a variables tree's names and bytes, in JAX's leaf order."""
+    import hashlib
+
+    from fedml_tpu_torch.compress.codecs import jax_leaves
+
+    h = hashlib.sha256()
+    for path, leaf in jax_leaves(variables):
+        h.update("/".join(path).encode())
+        h.update(leaf.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def rules_case(spec: Dict) -> Dict:
+    """``make_rule_round_fn`` rounds on a ``(dp, mp)`` mesh of ``spec["mesh"]``
+    over the first dp*mp ranks (the others return ``{"member": False}``):
+    the transformer ``transformer_lm(**dims)`` from ``PRNGKey(0)``, SGD at
+    ``lr``, the key ``PRNGKey(seed)``, ``rounds`` rounds over the global
+    block ``data`` under ``table`` (a name or a JSON path) with ``codec``
+    and ``ef``.  Returns the whole final variables gathered, their digest,
+    the metrics of each round, the residual store's digest, and the bytes of
+    this rank's store as it was made (``residual_store``) and after the
+    rounds."""
+    dp, mp = spec["mesh"]
+    mesh = make_dp_mp_mesh(dp, mp, devices=list(range(dp * mp)), device=spec["device"])
+    if mesh.get_coordinate() is None:
+        return {"member": False}
+    dev = mesh_device(mesh)
+    bundle = _lm_bundle(spec, dev)
+    lu = make_local_update(bundle, make_client_optimizer("sgd", spec["lr"]), epochs=1)
+    variables = bundle.init(PRNGKey(0))
+    codec = get_codec(spec.get("codec") or None)
+    ef = bool(spec.get("ef")) and codec is not None
+    clients = int(np.asarray(spec["data"][0]).shape[0])
+    table = resolve_rules(spec.get("table", "fedllm"))
+    residuals = (residual_store(mesh, variables, table, spec.get("num_clients", clients))
+                 if ef else ())
+    made = _store_bytes(residuals)
+    state = ServerState(variables, (), 0, PRNGKey(spec["seed"]), residuals)
+    round_fn, shard_state, shard_data = make_rule_round_fn(
+        mesh, lu, variables, table, codec=codec, error_feedback=ef,
+        exact_aggregation=spec.get("exact", True))
+    state = shard_state(state)
+    metrics = []
+    for _ in range(spec["rounds"]):
+        state, m = round_fn(state, *shard_data(spec["data"]))
+        metrics.append(m)
+    with use_mesh(mesh):
+        whole = unshard_tree(state.variables)
+        store = unshard_tree(state.residuals) if ef else {}
+    return {"member": True, "mesh": describe_mesh(mesh), "variables": whole,
+            "digest": _digest(whole), "metrics": metrics,
+            "residual_digest": _digest(store) if ef else None,
+            "store_bytes": {"made": made, "after": _store_bytes(state.residuals)}}
+
+
+def _store_bytes(store) -> int:
+    """The bytes a rank holds of a laid-out store."""
+    return sum(s.block.numel() * s.block.element_size() for s in _shards_of(store))
+
+
+def wire_case(spec: Dict) -> Dict:
+    """``wire_encode_tree_sharded`` of the transformer from ``PRNGKey(0)``
+    laid out by ``FEDLLM_RULES`` on a ``(dp, mp)`` mesh of ``spec["mesh"]``
+    over the first dp*mp ranks, for each codec of ``codecs`` under
+    ``PRNGKey(seed)``: the entries and, decoded, the whole leaves."""
+    dp, mp = spec["mesh"]
+    mesh = make_dp_mp_mesh(dp, mp, devices=list(range(dp * mp)), device=spec["device"])
+    if mesh.get_coordinate() is None:
+        return {"member": False}
+    variables = _lm_bundle(spec, mesh_device(mesh)).init(PRNGKey(0))
+    sharded, _ = shard_by_rules(mesh, variables, FEDLLM_RULES)
+    out: Dict[str, Any] = {"member": True}
+    with use_mesh(mesh):
+        for name in spec["codecs"]:
+            codec = get_codec(name)
+            entries = wire_encode_tree_sharded(codec, sharded, PRNGKey(spec["seed"]))
+            out[name] = {"entries": entries,
+                         "decoded": wire_decode_tree_sharded(codec, entries, variables)}
+    return out
+
+
+def collectives_case(spec: Dict) -> Dict:
+    """``all_gather`` along dimension 1 (tiled and stacked) and
+    ``psum_scatter`` (tiled along dimension 1, and untiled) over a 1-D
+    ``x`` mesh of the world, of ``(r + 1) * base`` on rank r (``base`` a
+    ``[2, n, 3]`` array), and the gradient of ``Σ c · all_gather(x)`` with
+    respect to this rank's x for ``c`` the same on every rank."""
+    from fedml_tpu_torch.parallel.compat import psum_scatter
+
+    mesh = make_1d_mesh(axis="x", device=spec["device"])
+    dev = mesh_device(mesh)
+    base = torch.from_numpy(np.asarray(spec["base"], np.float32)).to(dev)
+    with use_mesh(mesh):
+        mine = (axis_index("x") + 1) * base
+        x = mine.clone().requires_grad_(True)
+        gathered = all_gather(x, "x", axis=1)
+        cot = torch.from_numpy(np.asarray(spec["cot"], np.float32)).to(dev)
+        (grad,) = torch.autograd.grad((gathered * cot).sum(), [x])
+        return {"tiled": gathered.detach(), "stacked": all_gather(mine, "x", axis=1, tiled=False),
+                "scatter": psum_scatter(mine, "x", scatter_dimension=1),
+                "scatter_untiled": psum_scatter(mine, "x", scatter_dimension=1, tiled=False),
+                "grad": grad}
 
 
 CASES = {"mesh": mesh_case, "spmd": spmd_case, "hier": hier_case, "gossip": gossip_case,
          "compiled": compiled_case, "grads": grads_case, "ring": ring_case, "sp": sp_case,
-         "dp_sp": dp_sp_case, "run_main": run_main_case}
+         "dp_sp": dp_sp_case, "run_main": run_main_case, "tp": tp_case,
+         "tp_grads": tp_grads_case, "dp_tp": dp_tp_case, "rules": rules_case,
+         "wire": wire_case, "collectives": collectives_case}
 
 
 def run_cases(cases: Sequence[Tuple[str, Dict]]) -> List[Dict]:
@@ -463,6 +761,20 @@ def dryrun_cases(n_devices: int, device: str) -> List[Tuple[str, Dict]]:
             data=(xs, np.roll(xs, -1, axis=-1), np.ones((2, 2, 2), np.float32),
                   np.full((2,), 2 * 2 * lg, np.float32), np.ones((2,), np.float32),
                   np.arange(2, dtype=np.int32)))))
+    tlm = dict(vocab_size=32, embed_dim=16, num_heads=4, num_layers=1, seq_len=8)
+    if n_devices % 2 == 0:
+        n_cl = n_devices // 2  # one client a clients row
+        xt = np.random.RandomState(0).randint(0, 32, (n_cl, 2, 2, 8)).astype(np.int32)
+        cases.append(("dp_tp", dict(
+            device=device, **tlm, mesh=(n_cl, 2), key=8, single=True,
+            opt=dict(name="sgd", lr=0.1, momentum=0.9),
+            data=(xt, np.roll(xt, -1, axis=-1), np.ones((n_cl, 2, 2), np.float32),
+                  np.full((n_cl,), 32, np.float32), np.ones((n_cl,), np.float32),
+                  np.arange(n_cl, dtype=np.int32)))))
+    toks = np.random.RandomState(1).randint(0, 32, (2, 8)).astype(np.int32)
+    cases.append(("tp", dict(device=device, **tlm, key=0, tokens=toks,
+                             targets=np.roll(toks, -1, axis=1), steps=1, lr=0.1,
+                             single=True)))
     return cases
 
 
@@ -519,6 +831,19 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None, *,
             elif kind == "sp":
                 gaps.append(_assert_close(res["logits"], ref["reference"],
                                           "sp ring-attention LM forward"))
+            elif kind == "tp":
+                if not np.isfinite(res["losses"]).all():
+                    raise AssertionError(f"rank {rank}: tp step gave a non-finite loss")
+                np.testing.assert_allclose(res["losses"], ref["single"]["losses"], rtol=1e-4)
+                gaps.append(_assert_close(res["variables"], ref["single"]["variables"],
+                                          "tp transformer step"))
+            elif kind == "dp_tp":
+                if res["round_idx"] != 1 or not np.isfinite(res["metrics"]["loss_sum"]):
+                    raise AssertionError(f"rank {rank}: dp×tp round did not complete")
+                gaps.append(_assert_close(res["variables"], ref["single"]["variables"],
+                                          "dp×tp round"))
+                np.testing.assert_allclose(res["metrics"]["loss_sum"],
+                                           ref["single"]["metrics"]["loss_sum"], rtol=1e-4)
             else:
                 if res["round_idx"] != 1:
                     raise AssertionError(f"rank {rank}: dp×sp round did not complete")

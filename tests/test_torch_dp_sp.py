@@ -176,8 +176,8 @@ def test_run_main_sp_degree_matches_jax(ranks, jax_history, key):
 
 def test_run_main_sp_degree_refusals():
     """JAX's ValueErrors (tp and sp together, a degree that does not divide
-    the ranks); --tp_degree alone is still not ported (ROADMAP 6c);
-    --sp_degree outside fedllm refused; a mesh larger than the world."""
+    the ranks, for --tp_degree as for --sp_degree); --sp_degree outside
+    fedllm refused; a mesh larger than the world."""
     small = ["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--ci", "1",
              "--device", "cpu", "--run_dir", tempfile.mkdtemp()]
     with pytest.raises(ValueError, match="tp_degree and sp_degree cannot both exceed 1"):
@@ -185,7 +185,7 @@ def test_run_main_sp_degree_refusals():
     with pytest.raises(ValueError, match="tp_degree and sp_degree cannot both exceed 1"):
         jrun_experiment(JConfig(**{**CONFIG, "comm_round": 1, "tp_degree": 2,
                                    "sp_degree": 2}), log_fn=None)
-    with pytest.raises(NotImplementedError, match="queue A item 6c"):
+    with pytest.raises(ValueError, match="parallel degree 2 does not divide device count 1"):
         run.main([*small, "--tp_degree", "2"])
     with pytest.raises(ValueError, match="parallel degree 2 does not divide device count 1"):
         run.main([*small, "--sp_degree", "2"])

@@ -154,6 +154,14 @@ def _base_framework_runs(tmp_path, monkeypatch, extra):
     assert out["history"] == want
 
 
+def _rule_engine_runs(tmp_path, monkeypatch, extra):
+    """fedllm through the rule engine on a 1 x 1 (dp, mp) mesh: finite
+    metrics every round."""
+    out = run.main([*extra, "--device", "cpu", "--ci", "1", "--run_dir", str(tmp_path)])
+    assert out["mesh"] == {"dp": 1, "mp": 1}
+    assert all(np.isfinite(row["train_loss"]) for row in out["history"])
+
+
 def _routes_the_loader(tmp_path, monkeypatch, extra):
     """The dataset loads through the registry (its 224-px stand-in's
     geometry asked of the loader), the model is the JAX registry's for it,
@@ -183,10 +191,13 @@ def _routes_the_loader(tmp_path, monkeypatch, extra):
     # the whole algorithm family is ported, base_framework (the cross-device
     # runtime's tutorial template) the last of it
     (["--algorithm", "base_framework"], _base_framework_runs),
+    # tensor parallelism runs on ranks (tests/test_torch_gspmd.py); a lone
+    # process is one rank, and JAX's ValueError says the degree does not fit
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--tp_degree", "2"],
-     _NOT_PORTED),
-    (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--mesh", "dp,mp"],
-     _NOT_PORTED),
+     (ValueError, "parallel degree 2 does not divide device count 1")),
+    # the rule engine runs, on a 1 x 1 mesh in a lone process too
+    (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--mesh", "1,1"],
+     _rule_engine_runs),
     # fedavg compresses now; one-device fedllm does not (nor in JAX, which
     # ignores the flag there)
     (["--algorithm", "fedllm", "--dataset", "fed_shakespeare", "--compress", "int8"],

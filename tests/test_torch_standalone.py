@@ -496,10 +496,10 @@ def test_run_main_fedgkt_two_server_epochs_tracks_float64(tmp_path, monkeypatch)
     (["--algorithm", "fednas", "--arch_order", "3"], (ValueError, "arch_order")),
     (["--algorithm", "splitnn", "--compress", "int8"], (NotImplementedError, "C4")),
     (["--algorithm", "vfl", "--checkpoint_every", "1"], (SystemExit, "no checkpoint wiring")),
-    # base_framework runs (tests/test_torch_base_framework.py); --mesh is the
-    # rule-driven sharding engine, which waits for queue A item 6c
+    # base_framework runs (tests/test_torch_base_framework.py); --mesh lays
+    # fedllm's transformer out over ranks, and nothing else
     (["--algorithm", "base_framework", "--mesh", "dp,mp"],
-     (NotImplementedError, "queue A item 6")),
+     (ValueError, "base_framework has no sharded path")),
     (["--algorithm", "fedgkt", "--conv_variant", "kernel"], (ValueError, "conv_variant")),
     (["--algorithm", "fedgkt", "--compute_dtype", "bf16"], (ValueError, "compute_dtype")),
     (["--algorithm", "turboaggregate", "--compress", "int8"],
