@@ -293,7 +293,32 @@ Phases, in order; any failure exits non-zero:
              forward, the bf16 round within 0.05 of part 1's update, every
              rank the same bytes, and ``run.main --sp_degree 2``; per rank
              the flash launches, the bytes staged and the seconds.  The same
-             launch runs [mesh]'s and [tp]'s multi-rank parts.
+             launch runs [mesh]'s, [tp]'s, [pp]'s and [ep]'s multi-rank parts.
+24. pp     — pipeline parallelism (``fedml_tpu_torch/parallel/pipeline.py``)
+             at the fedllm bench width, the flash kernel in every Block of
+             every stage: on a 1-rank NCCL pp mesh the 12 Blocks as one
+             stage (embedding, final norm and head outside), 4 microbatches
+             of 2 x 1,024 tokens forward and backward in bf16 against
+             ``serial_reference`` (output within 1e-3, stage gradients
+             within 1e-2 of their norm), 48 flash launches a forward, all
+             wgmma; then 2 gloo ranks sharing the card (6 Blocks a stage,
+             in [sp]'s launch): the fp32 forward within 1e-4 of the 1-rank
+             one and a planted fault (the stages swapped) beyond it, the
+             bf16 output and stage gradients against the 1-rank ones, each
+             rank's first flash call on a real microbatch against
+             ``attention_plain`` (2e-2), 30 flash launches a forward a rank
+             (bubble ticks compute, as JAX's), the ring hops' bytes staged
+             through the host equal to the count from the shapes.
+25. ep     — expert parallelism (``fedml_tpu_torch/parallel/expert.py``),
+             fp32: the top-1 MoE at the Block's MLP width (1,280 -> 5,120)
+             over the bench batch's 8,192 tokens on a 1-rank NCCL ep mesh
+             against ``moe_reference`` (1e-5), timed beside it in turns;
+             then 2 gloo ranks (an expert and 4,096 tokens a rank, in [sp]'s
+             launch): against ``moe_reference`` at capacity 4,096, against
+             the dense per-shard oracle at 2,048 (tokens dropped), the
+             gradients of gate, experts and tokens against autograd through
+             that oracle on one rank (1e-4), the all-to-all bytes against
+             the count from the shapes.  No kernel runs in [ep].
 
 ``--phases a,b,...`` runs only the named phases, in this order; every
 phase prints its seconds.
@@ -2422,7 +2447,7 @@ def _imagenet_bundle(model, dataset, classes, device, library=False):
 
 
 def _logit_gap(got, want) -> float:
-    """max |Δ| of two logit tensors over the largest magnitude of ``want``."""
+    """max |Δ| of two tensors over the largest magnitude of ``want``."""
     want = want.cpu().double()
     return ((got.cpu().double() - want).abs().max() / want.abs().max()).item()
 
@@ -5539,14 +5564,542 @@ def check_tp_ranks(ranks, wall: float, rec: dict, device: str, card: str,
           f"launches {rec['flash_launches']} ({rec['flash_wgmma_launches']} wgmma) ({card})")
 
 
+# [pp]: the GPipe pipeline at the fedllm bench width (bench.py's
+# TransformerLM): PP_MICRO microbatches of PP_BATCH x PP_L tokens
+PP_DIMS = SP_DIMS
+PP_L, PP_MICRO, PP_BATCH, PP_RANKS = 1024, 4, 2, 2
+# part 1, bf16: the pipeline's output (max |Δ| over max |y|) and each stage
+# gradient (||Δ|| / ||g||) against serial_reference; part 2: the fp32
+# forward against part 1's (max |Δ| over max |y|), the bf16 output and stage
+# gradients against part 1's
+PP_OUT_TOL, PP_GRAD_TOL, PP_FWD_TOL = 1e-3, 1e-2, 1e-4
+# [ep]: one expert at the Block's MLP width over the bench batch's tokens;
+# part 2 two experts, EP_TOKENS // EP_RANKS tokens a rank
+EP_D, EP_H, EP_TOKENS, EP_RANKS = 1280, 5120, 8 * 1024, 2
+# fp32 (TF32 off): outputs max |Δ| over max |ref|, gradients ||Δ|| / ||g||
+EP_TOL, EP_GRAD_TOL = 1e-5, 1e-4
+
+
+def _pp_geometry() -> dict:
+    """[pp]'s sizes, handed to its ranks whole (a rehearsal shrinks them)."""
+    return dict(dims=PP_DIMS, L=PP_L, micro=PP_MICRO, batch=PP_BATCH, ranks=PP_RANKS)
+
+
+def _stage_params(params: dict, first: int, depth: int) -> dict:
+    """Blocks ``first .. first + depth - 1`` of a transformer's parameters,
+    renamed ``Block_0 .. Block_<depth - 1>`` (a ``BlockStage``'s names)."""
+    return {f"Block_{i}.{k.split('.', 1)[1]}": v for i in range(depth)
+            for k, v in params.items() if k.startswith(f"Block_{first + i}.")}
+
+
+def _pp_loss(y, head: dict, targets):
+    """The LM loss on the pipeline's output: final norm, the weight-tied
+    head and cross-entropy against the next tokens, in fp32."""
+    import torch
+    import torch.nn.functional as F
+
+    h = F.layer_norm(y.float(), (y.shape[-1],), head["ln_f.scale"], head["ln_f.bias"],
+                     eps=1e-6)
+    logits = h @ head["wte.embedding"].t()
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]), targets.reshape(-1).long())
+
+
+def _norm_gap(got: dict, want: dict) -> float:
+    """The largest ||Δ|| / ||want|| over the leaves."""
+    return max(float((got[k].double() - want[k].double()).norm()
+                     / want[k].double().norm().clamp_min(1e-300)) for k in want)
+
+
+def _pp_grads(apply, stacked: dict, mesh, x, head, targets):
+    """The pipeline's bf16 output and this rank's stage gradients of the
+    LM loss (``[1, ...]`` blocks squeezed)."""
+    import torch
+
+    from fedml_tpu_torch.parallel.pipeline import shard_stage_params
+
+    leaves = {k: s._replace(block=s.block.requires_grad_(True))
+              for k, s in shard_stage_params(mesh, stacked).items()}
+    y = apply(leaves, x)
+    grads = torch.autograd.grad(_pp_loss(y, head, targets), [s.block for s in leaves.values()])
+    return y.detach(), {k: g[0] for k, g in zip(leaves, grads)}
+
+
+def phase_pp(device: str = "cuda", shared: Optional[list] = None):
+    """Pipeline parallelism on the card (``parallel/pipeline.py``) at the
+    fedllm bench width, the flash kernel in every Block of every stage.
+
+    1. A 1-rank NCCL ``pp`` mesh, in process: the stage is the bench-width
+       transformer's 12 Blocks (embedding, final norm and head outside the
+       pipeline), PP_MICRO microbatches of PP_BATCH x PP_L tokens forward
+       and backward in bf16 (LM loss): the output within PP_OUT_TOL and each
+       stage gradient within PP_GRAD_TOL of ``serial_reference`` on the
+       card, the two timed in turns; 12 flash launches per microbatch, all
+       wgmma.  Then part 2's references: the fp32 forward and the bf16
+       output and gradients of the same pipeline.
+    2. PP_RANKS gloo ranks sharing the card (in ``launch_shared``'s launch
+       when given a ``shared`` list), 12 / PP_RANKS Blocks a stage, the
+       activations' ring hops staged through the host: the fp32 forward
+       within PP_FWD_TOL of part 1's and a planted fault (the stages in the
+       wrong order) beyond it; the bf16 forward and backward, output and
+       stage gradients within PP_OUT_TOL / PP_GRAD_TOL of part 1's; each
+       rank's first flash call on a real microbatch held against
+       ``attention_plain`` on the same q/k/v views within TOL["bf16"];
+       Blocks x (M + S - 1) flash launches per forward per rank (bubble
+       ticks compute, as JAX's do); ``ppermute.staged_bytes`` beside the
+       count from the shapes.
+
+    Returns the record, which ``check_pp_ranks`` completes once part 2 has
+    run.  ``device`` "cpu" rehearses the phase on gloo (launch counts are
+    0)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.models.transformer import transformer_lm
+    from fedml_tpu_torch.parallel.compat import single_rank_group
+    from fedml_tpu_torch.parallel.dryrun import block_stage_fn
+    from fedml_tpu_torch.parallel.pipeline import (make_gpipe, make_pp_mesh, serial_reference,
+                                                   shard_stage_params, stack_stage_params)
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    g = _pp_geometry()
+    dims, L, M, B, n = g["dims"], g["L"], g["micro"], g["batch"], g["ranks"]
+    layers, E, H = dims["num_layers"], dims["embed_dim"], dims["num_heads"]
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    tmp = tempfile.mkdtemp(prefix="fedml_pp_")
+    ref_path = os.path.join(tmp, "reference.pt")
+    with torch.no_grad():
+        params = transformer_lm(**dims, seq_len=L, device=device).init(PRNGKey(0))["params"]
+        toks = torch.from_numpy(np.random.RandomState(0).randint(
+            0, dims["vocab_size"], (M, B, L))).to(device)
+        x = params["wte.embedding"][toks] + params["wpe.embedding"][:L]
+    head = {k: params[k] for k in ("ln_f.scale", "ln_f.bias", "wte.embedding")}
+    targets = toks.roll(-1, -1)
+    with single_rank_group(device):
+        mesh = make_pp_mesh(1, device=device)
+        stage_fn = block_stage_fn(E, H, layers)
+        apply = make_gpipe(mesh, stage_fn)
+        whole32 = stack_stage_params([_stage_params(params, 0, layers)])
+        whole16 = {k: v.bfloat16() for k, v in whole32.items()}
+        x16 = x.bfloat16()
+
+        def serial():
+            ref = {k: v.clone().requires_grad_(True) for k, v in whole16.items()}
+            ys = serial_reference(stage_fn, ref, x16)
+            grads = torch.autograd.grad(_pp_loss(ys, head, targets), list(ref.values()))
+            return ys.detach(), {k: gr[0] for k, gr in zip(ref, grads)}
+
+        calls = {"pipeline": lambda: _pp_grads(apply, whole16, mesh, x16, head, targets),
+                 "serial": serial}
+        times = {k: [] for k in calls}
+        out, seen = {}, {}
+        for name in ("pipeline", "serial", "serial", "pipeline"):
+            first = name not in out
+            if first:
+                reset_launches()
+            t0 = time.perf_counter()
+            res = calls[name]()
+            sync()
+            times[name].append(time.perf_counter() - t0)
+            if first:
+                seen[name] = read_launches()
+                out[name] = res
+        (y, grads), (ys, sgrads) = out["pipeline"], out["serial"]
+        out_gap, grad_gap = _logit_gap(y, ys), _norm_gap(grads, sgrads)
+        reset_launches()
+        with torch.no_grad():
+            y32 = apply(shard_stage_params(mesh, whole32), x)
+        sync()
+        seen["fp32"] = read_launches()
+        rec.update(times=times, out_gap=out_gap, grad_gap=grad_gap, part1_launches={
+            k: seen[k]["flash_attention_fwd"] for k in ("pipeline", "fp32")},
+            part1_wgmma={k: seen[k]["flash_attention_fwd_wgmma"] for k in ("pipeline", "fp32")})
+        print(f"[pp] part 1 on a 1-rank {device} pp mesh: the stage is {layers} Blocks at width "
+              f"{E} ({H} heads), {M} microbatches of {B} x {L} tokens, bf16 forward and "
+              f"backward (LM loss): s in turns (pipeline, serial, serial, pipeline) pipeline "
+              f"{[round(t, 4) for t in times['pipeline']]}, serial_reference "
+              f"{[round(t, 4) for t in times['serial']]}; output max |Δ| / max |y| "
+              f"{out_gap:.3g} (gate {PP_OUT_TOL}), stage gradients ||Δ|| / ||g|| "
+              f"{grad_gap:.3g} (gate {PP_GRAD_TOL}); flash launches {rec['part1_launches']} "
+              f"(wgmma {rec['part1_wgmma']}), {layers * M} expected a forward ({card})")
+        if not (out_gap <= PP_OUT_TOL and grad_gap <= PP_GRAD_TOL
+                and torch.isfinite(y).all()):
+            fail(f"pp: the 1-rank pipeline is {out_gap:.3g} (gradients {grad_gap:.3g}) from "
+                 "serial_reference")
+        if device == "cuda" and (
+                any(v != layers * M for v in rec["part1_launches"].values())
+                or rec["part1_wgmma"] != {"pipeline": layers * M, "fp32": 0}):
+            fail(f"pp: flash launches {rec['part1_launches']} (wgmma {rec['part1_wgmma']}), "
+                 f"expected {layers * M} a forward, wgmma in bf16 only")
+        depth = layers // n
+        torch.save({"stacked": {k: v.cpu() for k, v in stack_stage_params(
+                        [_stage_params(params, s * depth, depth) for s in range(n)]).items()},
+                    "x": x.cpu(), "targets": targets.cpu(),
+                    "head": {k: v.cpu() for k, v in head.items()}, "y32": y32.cpu(),
+                    "y16": y.cpu(), "grads": {k: v.cpu() for k, v in grads.items()}},
+                   ref_path)
+        del out, calls, y, ys, grads, sgrads, y32, whole32, whole16, params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec["part1_s"] = time.perf_counter() - t_phase
+    rec["rank_spec"] = dict(device=device, ref=ref_path, geometry=g)
+    _hand_over(RankPart("pp", n, _pp_rank, rec["rank_spec"],
+                        lambda ranks, wall, extra: check_pp_ranks(ranks, wall, rec, device,
+                                                                  card, extra_s=extra),
+                        functools.partial(shutil.rmtree, tmp, ignore_errors=True)),
+               shared, device, card)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[pp] phase time: {rec['phase_s']:.1f} s ({card})")
+    return rec
+
+
+def _pp_rank(spec: dict) -> dict:
+    """[pp]'s part 2 on one of PP_RANKS gloo ranks: the fp32 forward, the
+    planted fault and the bf16 forward and backward of the pipeline of
+    12 / PP_RANKS Blocks a stage, each with its seconds, this rank's flash
+    launches and the bytes its ring hops staged through the host."""
+    import torch
+    import torch.distributed as dist
+
+    import fedml_tpu_torch.ops.flash_attention as fa
+    from fedml_tpu_torch.parallel import compat
+    from fedml_tpu_torch.parallel.dryrun import block_stage_fn
+    from fedml_tpu_torch.parallel.pipeline import make_gpipe, make_pp_mesh, shard_stage_params
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, g = spec["device"], spec["geometry"]
+    n, dims = g["ranks"], g["dims"]
+    depth = dims["num_layers"] // n
+    rank = dist.get_rank()
+    t0 = time.perf_counter()
+    ref = torch.load(spec["ref"], map_location=device)
+    load_s = time.perf_counter() - t0
+    # the call to hold against attention_plain: this rank's first on a real
+    # microbatch, tick ``rank``'s first Block (``at`` counts the run's calls)
+    held: dict = {"calls": 0, "at": None}
+    real_flash = fa._flash_cuda
+
+    def flash_held(q, k, v, causal, lib=None):
+        o, lse = real_flash(q, k, v, causal, lib)
+        if held["calls"] == held["at"]:
+            held["at"] = None
+            with torch.no_grad():
+                want_o, _ = fa.attention_plain(q, k, v, causal)
+            held.update(shape=list(q.shape), strides=list(q.stride()),
+                        max_abs_err=float((o.float() - want_o.float()).abs().max()),
+                        within=bool(torch.allclose(o.float(), want_o.float(),
+                                                   rtol=TOL["bf16"], atol=TOL["bf16"])))
+        held["calls"] += 1
+        return o, lse
+
+    fa._flash_cuda = flash_held
+
+    def measured(fn):
+        reset_launches()
+        compat.ppermute.staged_bytes = 0
+        compat.BYTES.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        seen = read_launches()
+        return res, {"s": time.perf_counter() - t0, "flash": seen["flash_attention_fwd"],
+                     "wgmma": seen["flash_attention_fwd_wgmma"],
+                     "staged": compat.ppermute.staged_bytes,
+                     "bytes": {f"{kind}:{axis}": v for (kind, axis), v in compat.BYTES.items()}}
+
+    mesh = make_pp_mesh(n, device=device)
+    apply = make_gpipe(mesh, block_stage_fn(dims["embed_dim"], dims["num_heads"], depth))
+    stacked, x = ref["stacked"], ref["x"]
+    out = {"rank": rank, "load_s": load_s}
+    with torch.no_grad():
+        y32, out["fp32"] = measured(lambda: apply(shard_stage_params(mesh, stacked), x))
+        bad = apply(shard_stage_params(mesh, {k: v.flip(0) for k, v in stacked.items()}), x)
+    out["fp32"].update(gap=_logit_gap(y32, ref["y32"]), fault_gap=_logit_gap(bad, ref["y32"]),
+                       finite=bool(torch.isfinite(y32).all()))
+    del y32, bad
+    stacked16 = {k: v.bfloat16() for k, v in stacked.items()}
+    held.update(calls=0, at=rank * depth)
+    (y, grads), out["bf16"] = measured(lambda: _pp_grads(
+        apply, stacked16, mesh, x.bfloat16(), ref["head"], ref["targets"]))
+    want = _stage_params(ref["grads"], rank * depth, depth)
+    out["bf16"].update(out_gap=_logit_gap(y, ref["y16"]), grad_gap=_norm_gap(grads, want),
+                       names=len(grads) == len(want) == 10 * depth)
+    fa._flash_cuda = real_flash
+    out["held"] = {k: v for k, v in held.items() if k not in ("calls", "at")}
+    out["act_bytes"] = int(x[0].numel()) * 2  # one bf16 microbatch activation
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def check_pp_ranks(ranks, wall: float, rec: dict, device: str, card: str,
+                   extra_s: float = 0.0) -> None:
+    """[pp]'s part-2 gates over each rank's ``_pp_rank`` result; adds the
+    ranks' flash launches to the record; ``extra_s`` is the ranks' other
+    work in a shared launch."""
+    g = rec["rank_spec"]["geometry"]
+    n, M, layers = g["ranks"], g["micro"], g["dims"]["num_layers"]
+    depth, ticks = layers // n, M + n - 1
+    heads, E = g["dims"]["num_heads"], g["dims"]["embed_dim"]
+    for x in ranks:
+        f32, b16, held = x["fp32"], x["bf16"], x["held"]
+        act = x["act_bytes"]
+        # each tick sends and receives one activation; the backward runs the
+        # hops of every tick but the last (whose result nothing reads)
+        want_staged = {"fp32": ticks * 2 * 2 * act, "bf16": (2 * ticks - 1) * 2 * act}
+        # the output's psum-broadcast, once a run: its backward sends nothing
+        want_sum = {"fp32": M * 2 * act, "bf16": M * act}
+        print(f"[pp] rank {x['rank']} of {n} gloo ranks on {device}, {depth} Blocks a stage, "
+              f"{M} microbatches: fp32 forward {f32['s']:.3f} s, max |Δ| / max |y| "
+              f"{f32['gap']:.3g} vs the 1-rank forward (gate {PP_FWD_TOL}; planted fault, the "
+              f"stages in the wrong order, {f32['fault_gap']:.3g}); bf16 forward and backward "
+              f"{b16['s']:.3f} s, output {b16['out_gap']:.3g} (gate {PP_OUT_TOL}), stage "
+              f"gradients {b16['grad_gap']:.3g} (gate {PP_GRAD_TOL}) vs the 1-rank ones; flash "
+              f"launches fp32 {f32['flash']}, bf16 {b16['flash']} ({b16['wgmma']} wgmma), "
+              f"{depth * ticks} expected a forward; first flash call on a real microbatch "
+              f"(call {x['rank'] * depth}, q {held.get('shape')} strides {held.get('strides')}) "
+              f"vs attention_plain max abs err {held.get('max_abs_err')}, within "
+              f"{TOL['bf16']}: {held.get('within')}; staged through the host fp32 forward "
+              f"{f32['staged']} B (shapes {want_staged['fp32']}), bf16 forward and backward "
+              f"{b16['staged']} B (shapes {want_staged['bf16']}); bytes over the pp axis "
+              f"fp32 {f32['bytes']}, bf16 {b16['bytes']} (shapes psum {want_sum}); reference load {x['load_s']:.2f} s, the rank's "
+              f"{x['seconds']:.2f} s ({card})")
+        if not (f32["gap"] <= PP_FWD_TOL and f32["finite"]) or f32["fault_gap"] <= PP_FWD_TOL:
+            fail(f"pp: rank {x['rank']}'s fp32 pipeline is {f32['gap']:.3g} from the 1-rank "
+                 f"forward (planted fault {f32['fault_gap']:.3g})")
+        if not (b16["out_gap"] <= PP_OUT_TOL and b16["grad_gap"] <= PP_GRAD_TOL
+                and b16["names"]):
+            fail(f"pp: rank {x['rank']}'s bf16 pipeline is {b16['out_gap']:.3g} (gradients "
+                 f"{b16['grad_gap']:.3g}) from the 1-rank pipeline")
+        if device == "cuda" and (
+                f32["flash"] != depth * ticks or b16["flash"] != depth * ticks
+                or b16["wgmma"] != b16["flash"] or not held.get("within")
+                or held.get("shape") != [g["batch"], g["L"], heads, E // heads]):
+            fail(f"pp: rank {x['rank']}'s flash launches fp32 {f32['flash']}, bf16 "
+                 f"{b16['flash']} ({b16['wgmma']} wgmma), expected {depth * ticks}; first "
+                 f"call held {held}")
+        if device == "cuda" and (f32["staged"], b16["staged"]) != (want_staged["fp32"],
+                                                                   want_staged["bf16"]):
+            fail(f"pp: rank {x['rank']} staged {f32['staged']} / {b16['staged']} B, the "
+                 f"shapes say {want_staged}")
+        if (f32["bytes"], b16["bytes"]) != ({"psum:pp": want_sum["fp32"]},
+                                            {"psum:pp": want_sum["bf16"]}):
+            fail(f"pp: rank {x['rank']} sent {f32['bytes']} / {b16['bytes']} over the pp "
+                 f"axis, the shapes say psum {want_sum}")
+    body = max(x["seconds"] for x in ranks)
+    rec.update(ranks=ranks, launch_s=wall, rank_pp_s=body, startup_s=wall - body - extra_s,
+               flash_launches=sum(rec["part1_launches"].values())
+               + sum(x[p]["flash"] for x in ranks for p in ("fp32", "bf16")),
+               flash_wgmma_launches=sum(rec["part1_wgmma"].values())
+               + sum(x[p]["wgmma"] for x in ranks for p in ("fp32", "bf16")))
+    print(f"[pp] {n}-rank gloo launch {wall:.2f} s ([pp]'s work {body:.2f} s a rank); flash "
+          f"launches {rec['flash_launches']} ({rec['flash_wgmma_launches']} wgmma) ({card})")
+
+
+def _ep_problem(g: dict, n: int, device: str, seed: int):
+    """``init_moe_params`` for ``n`` experts of ``g``'s widths from
+    ``PRNGKey(seed)`` and ``g["tokens"]`` tokens from ``PRNGKey(seed + 1)``."""
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.parallel.expert import init_moe_params
+
+    params = init_moe_params(rng.PRNGKey(seed), n, g["d"], g["h"], device=device)
+    return params, rng.normal(rng.PRNGKey(seed + 1), (g["tokens"], g["d"]), device)
+
+
+def phase_ep(device: str = "cuda", shared: Optional[list] = None):
+    """Expert parallelism on the card (``parallel/expert.py``): the GShard
+    top-1 MoE FFN, fp32 with TF32 off.  No kernel runs here: the experts'
+    FFN is a plain product, as JAX's is outside any Pallas kernel.
+
+    1. A 1-rank NCCL ``ep`` mesh, in process: one expert at the Block's MLP
+       width (EP_D -> EP_H -> EP_D) over EP_TOKENS tokens (the bench
+       batch's), capacity EP_TOKENS, within EP_TOL of ``moe_reference``;
+       the two timed in turns.
+    2. EP_RANKS gloo ranks sharing the card (in ``launch_shared``'s launch
+       when given a ``shared`` list), an expert a rank, EP_TOKENS / EP_RANKS
+       tokens a rank, card buffers through gloo's all-to-all: at the
+       capacity of every local token, within EP_TOL of ``moe_reference``;
+       at half of it, within EP_TOL of the collective-free dense per-shard
+       oracle (``dryrun.moe_dense_oracle``) on the card, and the gradients
+       of the gate, the rank's expert weights and its tokens within
+       EP_GRAD_TOL of autograd through that oracle on one rank (the one-device
+       layer at the same capacity); the all-to-all bytes beside the count
+       from the shapes.
+
+    Returns the record, which ``check_ep_ranks`` completes once part 2 has
+    run."""
+    import torch
+
+    from fedml_tpu_torch.parallel.compat import single_rank_group
+    from fedml_tpu_torch.parallel.expert import (make_ep_mesh, make_moe_ffn, moe_reference,
+                                                 shard_moe_params)
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card, "kernels": "none: the experts' FFN is a plain product"}
+    t_phase = time.perf_counter()
+    g = dict(d=EP_D, h=EP_H, tokens=EP_TOKENS, ranks=EP_RANKS)
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    with single_rank_group(device), torch.no_grad():
+        mesh = make_ep_mesh(1, device=device)
+        params, x = _ep_problem(g, 1, device, 1)
+        sharded = shard_moe_params(mesh, params)
+        apply = make_moe_ffn(mesh, capacity=g["tokens"])
+        calls = {"moe": lambda: apply(sharded, x).block,
+                 "reference": lambda: moe_reference(params, x)}
+        times = {k: [] for k in calls}
+        out = {}
+        for name in ("moe", "reference", "reference", "moe"):
+            t0 = time.perf_counter()
+            out[name] = calls[name]()
+            sync()
+            times[name].append(time.perf_counter() - t0)
+        gap = _logit_gap(out["moe"], out["reference"])
+        rec.update(times=times, gap=gap)
+        print(f"[ep] part 1 on a 1-rank {device} ep mesh: one expert {g['d']} -> {g['h']} -> "
+              f"{g['d']} over {g['tokens']} tokens, capacity {g['tokens']}, fp32: s in turns (moe, "
+              f"reference, reference, moe) make_moe_ffn {[round(t, 4) for t in times['moe']]}, "
+              f"moe_reference {[round(t, 4) for t in times['reference']]}; max |Δ| / max |y| "
+              f"{gap:.3g} (gate {EP_TOL}); no kernel runs in [ep] ({card})")
+        if not (gap <= EP_TOL and torch.isfinite(out["moe"]).all()):
+            fail(f"ep: the 1-rank MoE is {gap:.3g} from moe_reference")
+        del out, calls, params, x, sharded
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    rec["part1_s"] = time.perf_counter() - t_phase
+    rec["rank_spec"] = dict(device=device, geometry=g)
+    _hand_over(RankPart("ep", g["ranks"], _ep_rank, rec["rank_spec"],
+                        lambda ranks, wall, extra: check_ep_ranks(ranks, wall, rec, device,
+                                                                  card, extra_s=extra)),
+               shared, device, card)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[ep] phase time: {rec['phase_s']:.1f} s ({card})")
+    return rec
+
+
+def _ep_rank(spec: dict) -> dict:
+    """[ep]'s part 2 on one of EP_RANKS gloo ranks: the MoE at two
+    capacities against its oracles, and its gradients at the smaller one;
+    each with its seconds and the bytes its all-to-alls sent."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.core import rng
+    from fedml_tpu_torch.parallel import compat
+    from fedml_tpu_torch.parallel.dryrun import moe_dense_oracle
+    from fedml_tpu_torch.parallel.expert import (make_ep_mesh, make_moe_ffn, moe_reference,
+                                                 shard_moe_params)
+    from fedml_tpu_torch.parallel.layout import shard_leaf
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, g = spec["device"], spec["geometry"]
+    n, T = g["ranks"], g["tokens"]
+    rank, t = dist.get_rank(), T // n
+    mesh = make_ep_mesh(n, device=device)
+    params, x = _ep_problem(g, n, device, 3)
+    rows = slice(rank * t, (rank + 1) * t)
+    sharded = shard_moe_params(mesh, params)
+    out = {"rank": rank, "local_tokens": t}
+
+    def measured(fn):
+        compat.BYTES.clear()
+        t0 = time.perf_counter()
+        res = fn()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return res, {"s": time.perf_counter() - t0,
+                     "a2a_bytes": compat.BYTES.get(("all_to_all", "ep"), 0)}
+
+    with torch.no_grad():
+        for name, cap in (("full", t), ("half", t // 2)):
+            y, out[name] = measured(lambda cap=cap: make_moe_ffn(mesh, cap)(sharded, x).block)
+            want = (moe_reference(params, x) if name == "full"
+                    else moe_dense_oracle(params, x, n, cap))[rows]
+            out[name].update(capacity=cap, gap=_logit_gap(y, want), finite=bool(
+                torch.isfinite(y).all()), dropped=int((y.abs().amax(1) == 0).sum()))
+    cap = t // 2
+    leaves = {k: s._replace(block=s.block.clone().requires_grad_(True))
+              for k, s in sharded.items()}
+    xs = shard_leaf(mesh, x, ("ep",))
+    xs = xs._replace(block=xs.block.requires_grad_(True))
+    cot = rng.normal(rng.PRNGKey(5), (T, g["d"]), device)
+    apply = make_moe_ffn(mesh, cap)
+    grads, out["grads"] = measured(lambda: torch.autograd.grad(
+        (apply(leaves, xs).block * cot[rows]).sum(),
+        [*(s.block for s in leaves.values()), xs.block]))
+    whole = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    xw = x.clone().requires_grad_(True)
+    ref = torch.autograd.grad((moe_dense_oracle(whole, xw, n, cap) * cot).sum(),
+                              [*whole.values(), xw])
+    got = dict(zip([*leaves, "x"], grads))
+    want = {"gate": ref[0], "w_in": ref[1][rank:rank + 1], "w_out": ref[2][rank:rank + 1],
+            "x": ref[3][rows]}
+    out["grads"].update(capacity=cap, gap=_norm_gap(got, want),
+                        per_leaf={k: _norm_gap({k: got[k]}, {k: want[k]}) for k in want})
+    out["buffer_bytes"] = {name: n * out[name]["capacity"] * g["d"] * 4
+                           for name in ("full", "half", "grads")}
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def check_ep_ranks(ranks, wall: float, rec: dict, device: str, card: str,
+                   extra_s: float = 0.0) -> None:
+    """[ep]'s part-2 gates over each rank's ``_ep_rank`` result."""
+    n = rec["rank_spec"]["geometry"]["ranks"]
+    for x in ranks:
+        full, half, gr = x["full"], x["half"], x["grads"]
+        buf = x["buffer_bytes"]
+        # each all-to-all sends one [E, capacity, d] fp32 buffer; the forward
+        # runs two, the backward two more
+        want = {"full": 2 * buf["full"], "half": 2 * buf["half"], "grads": 4 * buf["grads"]}
+        got = {k: x[k]["a2a_bytes"] for k in want}
+        print(f"[ep] rank {x['rank']} of {n} gloo ranks on {device}, an expert a rank, "
+              f"{x['local_tokens']} tokens a rank, fp32: capacity {full['capacity']} "
+              f"{full['s']:.3f} s, max |Δ| / max |y| {full['gap']:.3g} vs moe_reference "
+              f"(gate {EP_TOL}), {full['dropped']} tokens dropped; capacity "
+              f"{half['capacity']} {half['s']:.3f} s, {half['gap']:.3g} vs the dense per-shard "
+              f"oracle, {half['dropped']} dropped; gradients at capacity {gr['capacity']} "
+              f"{gr['s']:.3f} s, ||Δ|| / ||g|| {gr['gap']:.3g} (gate {EP_GRAD_TOL}) vs "
+              f"autograd through the oracle on one rank, per leaf "
+              f"{ {k: float(f'{v:.3g}') for k, v in gr['per_leaf'].items()} }; all-to-all "
+              f"bytes sent (gloo copies the card buffers through the host itself) {got} "
+              f"(shapes {want}); no kernel runs here; "
+              f"the rank's {x['seconds']:.2f} s ({card})")
+        if not (full["gap"] <= EP_TOL and half["gap"] <= EP_TOL and full["finite"]
+                and half["finite"] and full["dropped"] == 0 and half["dropped"] > 0):
+            fail(f"ep: rank {x['rank']}'s MoE is {full['gap']:.3g} / {half['gap']:.3g} from "
+                 f"its oracles (dropped {full['dropped']} / {half['dropped']})")
+        if not gr["gap"] <= EP_GRAD_TOL:
+            fail(f"ep: rank {x['rank']}'s MoE gradients are {gr['gap']:.3g} from the oracle's")
+        if got != want:
+            fail(f"ep: rank {x['rank']}'s all-to-alls sent {got} B, the shapes say {want}")
+    body = max(x["seconds"] for x in ranks)
+    rec.update(ranks=ranks, launch_s=wall, rank_ep_s=body, startup_s=wall - body - extra_s)
+    print(f"[ep] {n}-rank gloo launch {wall:.2f} s ([ep]'s work {body:.2f} s a rank) ({card})")
+
+
 PHASES = ["build", "kernels", "check", "main", "fedllm", "rng", "north_star", "sim",
           "init", "compress", "pack", "zoo", "silo", "algos", "standalone", "family",
-          "imagenet", "comm", "xdevice", "tcp", "mesh", "tp", "sp"]
+          "imagenet", "comm", "xdevice", "tcp", "mesh", "tp", "sp", "pp", "ep"]
 # the phases whose ResNet-56 client forwards the kernels line's conv count sums
 CONV_PHASES = ["main", "north_star", "sim", "compress", "silo", "algos", "standalone",
                "imagenet", "xdevice", "tcp", "mesh"]
 # the phases whose transformer forwards the kernels line's flash count sums
-FLASH_PHASES = ["fedllm", "sp", "tp"]
+FLASH_PHASES = ["fedllm", "sp", "tp", "pp"]
 
 
 def main() -> int:
@@ -5623,6 +6176,8 @@ def main() -> int:
         run("mesh", lambda: phase_mesh(shared=shared))
         run("tp", lambda: phase_tp(shared=shared))
         run("sp", lambda: phase_sp(shared=shared))
+        run("pp", lambda: phase_pp(shared=shared))
+        run("ep", lambda: phase_ep(shared=shared))
         if shared:
             t0 = time.perf_counter()
             launch_shared(shared)

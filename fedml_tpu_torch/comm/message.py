@@ -41,7 +41,6 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from fedml_tpu_torch.compress.codecs import jax_leaves, unflatten_like
 from fedml_tpu_torch.core.tree import host_array
 
 # --- reserved wire-format keys ---------------------------------------------
@@ -407,12 +406,17 @@ def _decode_value(v):
 def _leaves(tree: Any) -> List:
     """A tree's leaves in ``jax.tree_util`` order; an array alone is a
     one-leaf tree."""
+    # imported here: compress.codecs reads this module's NDARRAY_KEY at its top
+    from fedml_tpu_torch.compress.codecs import jax_leaves
+
     if isinstance(tree, dict):
         return [leaf for _, leaf in jax_leaves(tree)]
     return [tree]
 
 
 def _unflatten(like: Any, leaves: List) -> Any:
+    from fedml_tpu_torch.compress.codecs import unflatten_like
+
     return unflatten_like(like, leaves) if isinstance(like, dict) else leaves[0]
 
 

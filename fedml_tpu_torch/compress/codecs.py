@@ -41,13 +41,12 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fedml_tpu_torch.comm.message import NDARRAY_KEY
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.utils.topk import top_k_indices
 
 Tree = Any
 
-# the v1 wire format's base64 array leaf (``fedml_tpu/comm/message.py``)
-NDARRAY_KEY = "__ndarray__"
 # sub-streams under the round key: fold_in(k_round, 0) = training, 1 =
 # aggregation noise, 2 = update compression (per-client keys then fold in
 # the GLOBAL slot id), 3 = the cross-device server's downlink broadcast

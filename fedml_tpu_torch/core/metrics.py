@@ -56,7 +56,7 @@ class MetricsLogger:
         # pending spans attach to ROUND rows only, never to event records
         if self.spans and "kind" not in record:
             record.update(self.pop_spans())
-        record.setdefault("ts", time.time())
+        record.setdefault("ts", time.time())  # fedlint: disable=determinism -- MetricsLogger IS the obs layer's writer (lives in core/ for import-order reasons); ts is record metadata
         self._write(record)
         return record
 
@@ -65,7 +65,7 @@ class MetricsLogger:
         write one ``kind=telemetry`` snapshot of every series."""
         for ev in self.telemetry.drain_events():
             self._write(ev)
-        record = {"kind": "telemetry", "ts": time.time(),
+        record = {"kind": "telemetry", "ts": time.time(),  # fedlint: disable=determinism -- snapshot-record wall stamp (obs-role module); nothing replays it
                   **self.telemetry.snapshot()}
         self._write(record)
         return record

@@ -31,33 +31,42 @@ def _flatten(tree: Mapping, prefix: str, out: Dict[str, Any]) -> None:
             out[key] = v
 
 
+def from_jax_tree(tree: Mapping, device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """One collection's nested dict of numpy arrays under flax names → a
+    flat dict of tensors under the port's dotted names on ``device``.  A
+    leaf is copied as it is, so the stacked stage parameters of a pipeline
+    (every leaf ``[S, ...]``) and the MoE parameters (``gate``, ``w_in``,
+    ``w_out``) cross over by the same call."""
+    dev = resolve_device(device)
+    flat: Dict[str, Any] = {}
+    _flatten(tree, "", flat)
+    return {k: torch.from_numpy(np.array(v, copy=True)).to(dev) for k, v in flat.items()}
+
+
 def from_jax_variables(tree: Mapping, device: DeviceLike = None) -> Variables:
     """Nested dict of numpy arrays under flax names → the port's variables
     on ``device``."""
-    dev = resolve_device(device)
-    out = {}
-    for collection, sub in tree.items():
-        flat: Dict[str, Any] = {}
-        _flatten(sub, "", flat)
-        out[collection] = {
-            k: torch.from_numpy(np.array(v, copy=True)).to(dev)
-            for k, v in flat.items()}
-    return out
+    return {collection: from_jax_tree(sub, device) for collection, sub in tree.items()}
+
+
+def to_jax_tree(flat: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """A flat dict of tensors under dotted names → a nested dict of numpy
+    arrays under flax names (bf16 leaves come back as fp32; numpy has no
+    bf16)."""
+    node: Dict[str, Any] = {}
+    for name, t in flat.items():
+        *path, leaf = name.split(".")
+        d = node
+        for p in path:
+            d = d.setdefault(p, {})
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        d[leaf] = t.numpy()
+    return node
 
 
 def to_jax_variables(variables: Variables) -> Dict[str, Any]:
     """The port's variables → nested dict of numpy arrays under flax names
     (bf16 leaves come back as fp32; numpy has no bf16)."""
-    out: Dict[str, Any] = {}
-    for collection, flat in variables.items():
-        node = out.setdefault(collection, {})
-        for name, t in flat.items():
-            *path, leaf = name.split(".")
-            d = node
-            for p in path:
-                d = d.setdefault(p, {})
-            t = t.detach().cpu()
-            if t.dtype == torch.bfloat16:
-                t = t.float()
-            d[leaf] = t.numpy()
-    return out
+    return {collection: to_jax_tree(flat) for collection, flat in variables.items()}

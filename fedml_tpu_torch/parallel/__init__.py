@@ -8,9 +8,9 @@ over the named dimensions of a ``DeviceMesh``: gloo across CPU processes,
 NCCL on the card.
 
 - ``compat.py`` — the collective surface every engine imports (``psum``,
-  ``axis_index``, ``axis_size``, ``ppermute``, ``all_gather``, the
-  ``shard_map`` counterpart that binds a mesh) and ``launch``, which
-  brings a mesh's ranks into being.
+  ``axis_index``, ``axis_size``, ``ppermute``, ``all_gather``,
+  ``all_to_all``, the ``shard_map`` counterpart that binds a mesh) and
+  ``launch``, which brings a mesh's ranks into being.
 - ``mesh.py`` — the ``--mesh dp,mp`` parser and the dp×mp mesh.
 - ``spmd.py`` — FedAvg over a ``clients`` mesh axis, its host-local data
   assembly, and the two-tier round on a ``(group, clients)`` mesh.
@@ -25,10 +25,12 @@ NCCL on the card.
   tensor-parallel transformer.
 - ``partition.py`` — the partition-rule tables and the rule engine's round
   on a ``(dp, mp)`` mesh.
+- ``pipeline.py`` — the GPipe microbatch pipeline over a ``pp`` axis.
+- ``expert.py`` — the top-1 mixture-of-experts FFN over an ``ep`` axis,
+  its tokens routed by ``compat.all_to_all``.
 - ``dryrun.py`` — ``dryrun_multichip``, the multi-device check, and the
   rank bodies of the CPU parity tests.
 
-Pipeline and expert parallelism (``fedml_tpu/parallel/{pipeline,
-expert}.py``) are not ported yet (ROADMAP.md, queue A item 6d), nor the
-muxed cohort on a mesh (item 6c-2).
+The muxed cohort on a mesh (ROADMAP.md, queue A item 6c-2) is not ported
+yet.
 """

@@ -16,15 +16,22 @@ across CPU processes, NCCL on the card.
 - ``psum``, ``ppermute``, ``axis_index`` and ``axis_size`` take an axis
   name or a tuple of names (the flattened, row-major axis, as JAX's), over
   the bound mesh; ``all_gather`` (along any dimension; ``tiled=True``
-  concatenates, as JAX's) and ``psum_scatter`` one name.  A tree of
-  tensors travels as one buffer per dtype in ``psum`` and ``ppermute``.
-  ``psum``, ``ppermute`` and ``all_gather`` are differentiable, with JAX's
-  transposes (``psum`` of the cotangents; ``ppermute`` along the inverse
-  permutation; ``psum_scatter``); every rank runs the same graph, so the
-  backward's collectives meet in the same order.  Over an axis of one
-  rank each is its operand, and nothing is sent.  ``BYTES`` counts what
-  each collective moved, by collective and axis.
-  Under gloo, ``ppermute`` stages a card buffer through host memory.
+  concatenates, as JAX's), ``psum_scatter`` and ``all_to_all`` (tiled) one
+  name.  A tree of tensors travels as one buffer per dtype in ``psum`` and
+  ``ppermute``.  ``psum``, ``ppermute``, ``all_gather`` and ``all_to_all``
+  are differentiable, with JAX's transposes (``psum`` of the cotangents;
+  ``ppermute`` along the inverse permutation; ``psum_scatter``; the
+  all-to-all with its two axes swapped); every rank runs the same graph,
+  so the backward's collectives meet in the same order.  Over an axis of
+  one rank each is its operand, and nothing is sent.
+- ``replicated_in`` and ``replicated_out`` are the boundaries of a value
+  replicated over an axis, as ``shard_map`` transposes them: an operand
+  every rank uses for its own share of the work (identity forward, the
+  cotangents psum'd), and a result every rank holds a partial sum of
+  (psum forward, each rank's cotangent passed through).  ``BYTES`` counts
+  what each collective moved, by collective and axis.
+  Under gloo, ``ppermute`` stages a card buffer through host memory
+  (gloo's send aborts on one); gloo's all-to-all takes it as it is.
 - ``single_rank_group()`` makes this process a world of one rank (a
   1-rank mesh in process, beside the single-device code it must equal).
 - ``launch(fn, n, *args)`` spawns ``n`` ranks, runs ``fn(*args)`` on each
@@ -227,6 +234,53 @@ def psum(x, axis_name: AxisName):
 
 
 
+class _ReplicatedIn(torch.autograd.Function):
+    """Identity forward; the cotangent psum'd over the axis: each rank's
+    backward holds only its own share of the operand's gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, x):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, _psum_leaves(ctx.mesh, [grad], ctx.axis)[0]
+
+
+class _ReplicatedOut(torch.autograd.Function):
+    """psum forward; the cotangent passed through: every rank's loss reads
+    the same sum, so each rank's cotangent already is its partial sum's."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis, x):
+        return _psum_leaves(mesh, [x], axis)[0]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, grad
+
+
+def replicated_in(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """``x``, replicated over ``axis``, as an operand of per-rank work
+    (``in_specs=P()``): its gradient is the psum of the ranks'."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReplicatedIn.apply(current_mesh(), axis, x)
+    return x
+
+
+def replicated_out(x: torch.Tensor, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of the ranks' partial ``x``, a result every
+    rank holds (``out_specs=P()``).  Unlike ``psum``'s, the backward sends
+    nothing: where every rank's loss reads the result alike, each rank's
+    cotangent is the whole one already (JAX divides the one cotangent by
+    the axis size and psums the shares back: the same value)."""
+    mesh = current_mesh()
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _ReplicatedOut.apply(mesh, axis, x)
+    return _psum_leaves(mesh, [x], axis)[0]
+
+
 def _ppermute_leaves(mesh, leaves, axis_name: str, perm) -> list:
     group = mesh.get_group(axis_name)
     me = mesh.get_local_rank(axis_name)
@@ -375,6 +429,70 @@ def psum_scatter(x, axis_name: str, *, scatter_dimension: int = 0, tiled: bool =
     mesh = current_mesh()
     return _rebuild(x, [_scatter_leaf(mesh, leaf, axis_name, scatter_dimension, tiled)
                         for leaf in _leaves(x)])
+
+
+def _a2a_leaf(mesh, leaf, axis_name: str, split_axis: int, concat_axis: int):
+    """``leaf`` cut into the axis's ``n`` chunks along ``split_axis``, chunk
+    ``j`` sent to position ``j``, and the chunks received concatenated along
+    ``concat_axis`` in source order."""
+    n = _dim_size(mesh, axis_name)
+    split_axis, concat_axis = split_axis % leaf.dim(), concat_axis % leaf.dim()
+    if leaf.shape[split_axis] % n:
+        raise ValueError(f"all_to_all: dimension {split_axis} of shape "
+                         f"{tuple(leaf.shape)} does not split over the {axis_name!r} "
+                         f"axis of {n}")
+    if n == 1:
+        return leaf
+    send = leaf.movedim(split_axis, 0).contiguous()
+    _count("all_to_all", axis_name, send.numel() * send.element_size())
+    # gloo's all-to-all takes a card buffer as it is (it copies it through
+    # host memory itself), unlike its send/recv: nothing is staged here
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.get_group(axis_name))
+    return torch.cat([part.movedim(0, split_axis) for part in recv.chunk(n, 0)],
+                     concat_axis)
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all`` under autograd; its transpose is the all-to-all with
+    ``split_axis`` and ``concat_axis`` swapped (JAX's)."""
+
+    @staticmethod
+    def forward(ctx, mesh, axis_name, split_axis, concat_axis, leaf):
+        ctx.args = (mesh, axis_name, split_axis, concat_axis)
+        return _a2a_leaf(mesh, leaf, axis_name, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh, axis_name, split_axis, concat_axis = ctx.args
+        return (None, None, None, None,
+                _a2a_leaf(mesh, grad, axis_name, concat_axis, split_axis))
+
+
+def all_to_all(x, axis_name: str, *, split_axis: int, concat_axis: int,
+               tiled: bool = True):
+    """``lax.all_to_all`` in its tiled form: each rank's ``x`` splits into
+    the axis's ``n`` chunks along ``split_axis``; chunk ``j`` goes to axis
+    position ``j``, and each rank concatenates the chunks it receives along
+    ``concat_axis`` in source order (``split_axis`` shrinks ``n``-fold,
+    ``concat_axis`` grows ``n``-fold).  Over an axis of one rank it is its
+    operand.  Differentiable: the backward is the all-to-all with the two
+    axes swapped (JAX's transpose).
+
+    gloo and NCCL both take card buffers as they are (gloo copies them
+    through host memory itself); ``BYTES`` counts each rank's sent buffer.
+    The untiled form is not ported (``NotImplementedError``)."""
+    if not tiled:
+        raise NotImplementedError("all_to_all: only the tiled form is ported")
+    mesh = current_mesh()
+
+    def a2a(leaf):
+        if torch.is_grad_enabled() and leaf.requires_grad:
+            return _AllToAll.apply(mesh, axis_name, split_axis, concat_axis, leaf)
+        return _a2a_leaf(mesh, leaf, axis_name, split_axis, concat_axis)
+
+    return _rebuild(x, [a2a(leaf) for leaf in _leaves(x)])
+
 
 
 

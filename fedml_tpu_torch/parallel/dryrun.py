@@ -26,9 +26,12 @@ same inputs:
 - **tp** — one SGD step of ``tensor_parallel_lm`` over a 1-D ``tp`` mesh of
   every rank (4 heads: on 8 ranks every rank computes every head) against
   the same step of the plain transformer on one device.
-
-The JAX dryrun's pp and ep parts need the engines of ROADMAP queue A item
-6d, which are not ported yet; they are not run here.
+- **pp** — the GPipe pipeline over a 1-D ``pp`` mesh (one ``tanh(h @ w) +
+  h`` stage a rank, ``n + 2`` microbatches), forward and backward: each
+  rank's stage gradient of ``mean(y²)`` against the sequential stages'.
+- **ep** — the ``all_to_all`` MoE over a 1-D ``ep`` mesh (one expert a
+  rank, capacity 4 of 4 local tokens) against the collective-free dense
+  per-shard oracle (``moe_dense_oracle``).
 
 The ``*_case`` functions are rank bodies: each runs on every rank of a
 launch, builds its problem from a plain spec (numpy in, numpy out) and
@@ -51,12 +54,14 @@ from fedml_tpu_torch.algorithms.hierarchical import HierarchicalSimulation
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
 from fedml_tpu_torch.core.optrepo import get_server_optimizer
+from fedml_tpu_torch.core import rng
 from fedml_tpu_torch.core.rng import PRNGKey
 from fedml_tpu_torch.core.topology import ring_topology
 from fedml_tpu_torch.core.types import pack_clients
 from fedml_tpu_torch.data.synthetic import synthetic_classification
 from fedml_tpu_torch.models.linear import logistic_regression
 from fedml_tpu_torch.models.base import functional_call
+from fedml_tpu_torch.models.convert import from_jax_tree
 from fedml_tpu_torch.models.transformer import Block, transformer_lm
 from fedml_tpu_torch.models.resnet import resnet20
 from fedml_tpu_torch.parallel.compat import (all_gather, axis_index, axis_size, launch,
@@ -65,11 +70,15 @@ from fedml_tpu_torch.parallel.compat import (all_gather, axis_index, axis_size, 
 from fedml_tpu_torch.compress import get_codec, wire_decode_tree_sharded, wire_encode_tree_sharded
 from fedml_tpu_torch.parallel import tensor as tensor_mod
 from fedml_tpu_torch.parallel.dp_sp import make_dp_sp_mesh, make_dp_sp_round_fn
+from fedml_tpu_torch.parallel.expert import (init_moe_params, make_ep_mesh, make_moe_ffn,
+                                             moe_reference, shard_moe_params)
 from fedml_tpu_torch.parallel.gspmd import (make_dp_tp_mesh, make_dp_tp_round_fn,
                                             opt_state_sharding_like)
-from fedml_tpu_torch.parallel.layout import (Shard, axis_sizes, mesh_coords, shard_slice,
-                                             specs_of, unshard_tree)
+from fedml_tpu_torch.parallel.layout import (Shard, axis_sizes, mesh_coords, shard_leaf,
+                                             shard_slice, specs_of, unshard_tree)
 from fedml_tpu_torch.parallel.mesh import describe_mesh, make_dp_mp_mesh, mesh_from_spec
+from fedml_tpu_torch.parallel.pipeline import (make_gpipe, make_pp_mesh, serial_reference,
+                                               shard_stage_params)
 from fedml_tpu_torch.parallel.partition import (FEDLLM_RULES, make_rule_round_fn,
                                                 residual_store, resolve_rules,
                                                 shard_by_rules)
@@ -527,12 +536,12 @@ def tp_grads_case(spec: Dict) -> Dict:
                     for k, g in plain_g.items()}, "want_dx": plain_dx}
     with use_mesh(mesh):
         out["got"], out["got_dx"] = grads(tensor_mod.TPBlock(E, H, tp, "tp"), mine)
-        right = tensor_mod.reduce_from_tp
-        tensor_mod.reduce_from_tp = _row_parallel_psum
+        right = tensor_mod.replicated_out
+        tensor_mod.replicated_out = _row_parallel_psum
         try:
             out["wrong"], out["wrong_dx"] = grads(tensor_mod.TPBlock(E, H, tp, "tp"), mine)
         finally:
-            tensor_mod.reduce_from_tp = right
+            tensor_mod.replicated_out = right
     return out
 
 
@@ -704,11 +713,194 @@ def collectives_case(spec: Dict) -> Dict:
                 "grad": grad}
 
 
+def _tanh_stage(p, h):
+    return torch.tanh(h @ p["w"]) + h
+
+
+def _mlp_stage(p, h):
+    return torch.tanh(h @ p["w1"] + p["b1"]) @ p["w2"] + p["b2"] + h
+
+
+class BlockStage(torch.nn.Module):
+    """A pipeline stage of ``depth`` transformer ``Block``s, whose
+    parameters are named as flax names a module's ``Block_<i>`` children."""
+
+    def __init__(self, embed_dim: int, num_heads: int, depth: int):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            self.add_module(f"Block_{i}", Block(embed_dim, num_heads))
+
+    def forward(self, x):
+        for i in range(self.depth):
+            x = getattr(self, f"Block_{i}")(x)
+        return x
+
+
+def block_stage_fn(embed_dim: int, num_heads: int, depth: int):
+    """``stage_fn(params, x)`` of a ``BlockStage``: its parameters are the
+    stage's ``Block_<i>.<name>`` leaves."""
+    stage = BlockStage(embed_dim, num_heads, depth)
+    return lambda p, h: functional_call(stage, p, (h,))
+
+
+def _stage_fn(spec: Dict):
+    if spec["stage"] == "tanh":
+        return _tanh_stage
+    if spec["stage"] == "mlp":
+        return _mlp_stage
+    return block_stage_fn(*spec["blocks"])
+
+
+def _pp_loss(y, spec: Dict, dev):
+    if spec.get("target") is None:
+        return (y ** 2).mean()
+    return ((y - torch.from_numpy(np.asarray(spec["target"])).to(dev)) ** 2).mean()
+
+
+def pp_case(spec: Dict) -> Dict:
+    """``make_gpipe`` over a 1-D ``pp`` mesh of the world: stage ``stage``
+    ("tanh", "mlp" or "blocks" of ``(embed_dim, num_heads, depth)``) over
+    the stacked parameters ``stacked`` (numpy, ``[S, ...]``) and the
+    microbatches ``x``.  Returns the forward and, with ``grads``, the loss
+    (``mean((y - target)²)``, or ``mean(y²)`` without ``target``) and this
+    rank's stage gradients; with ``refusal`` the ``ValueError`` of twice the
+    stages; with ``reference`` rank 0 also runs ``serial_reference`` (its
+    forward, and every stage's gradients)."""
+    mesh = make_pp_mesh(device=spec["device"])
+    dev = mesh_device(mesh)
+    fn = _stage_fn(spec)
+    stacked = from_jax_tree(spec["stacked"], dev)
+    x = torch.from_numpy(np.asarray(spec["x"])).to(dev)
+    apply = make_gpipe(mesh, fn)
+    out: Dict[str, Any] = {}
+    if spec.get("refusal"):
+        try:
+            apply(shard_stage_params(mesh, {k: torch.cat([v, v]) for k, v in stacked.items()}),
+                  x)
+            out["refusal"] = None
+        except ValueError as e:
+            out["refusal"] = str(e)
+    params = shard_stage_params(mesh, stacked)
+    with torch.no_grad():
+        out["out"] = apply(params, x)
+    if spec.get("grads"):
+        leaves = {k: v._replace(block=v.block.clone().requires_grad_(True))
+                  for k, v in params.items()}
+        loss = _pp_loss(apply(leaves, x), spec, dev)
+        grads = torch.autograd.grad(loss, [v.block for v in leaves.values()])
+        out["loss"] = float(loss.detach())
+        out["grads"] = {k: g[0] for k, g in zip(leaves, grads)}
+    if spec.get("reference") and dist.get_rank() == 0:
+        whole = {k: v.clone().requires_grad_(True) for k, v in stacked.items()}
+        ys = serial_reference(fn, whole, x)
+        grads = torch.autograd.grad(_pp_loss(ys, spec, dev), list(whole.values()))
+        out["reference"] = {"out": ys.detach(), "grads": dict(zip(whole, grads))}
+    return out
+
+
+def moe_dense_oracle(params: Dict, x, n_shards: int, capacity: int):
+    """Top-1 MoE with per-SHARD capacity queues, computed densely on one
+    device (every expert's FFN on every token, one-hot select): independent
+    of ``all_to_all`` (``__graft_entry__.py``'s oracle)."""
+    t = x.shape[0] // n_shards
+    outs = []
+    for s in range(n_shards):
+        xs = x[s * t:(s + 1) * t]
+        logits = xs @ params["gate"]
+        probs = torch.softmax(logits, dim=-1)
+        expert = torch.argmax(logits, dim=-1)
+        gate = torch.take_along_dim(probs, expert[:, None], dim=1)[:, 0]
+        onehot = (expert[:, None] == torch.arange(n_shards, device=x.device)).to(x.dtype)
+        pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(1)
+        keep = (pos < capacity).to(x.dtype)
+        dense = torch.stack([torch.relu(xs @ params["w_in"][e]) @ params["w_out"][e]
+                             for e in range(n_shards)], 1)  # [t, E, d]
+        sel = torch.einsum("te,ted->td", onehot, dense)
+        outs.append(sel * (gate * keep)[:, None])
+    return torch.cat(outs, 0)
+
+
+def ep_case(spec: Dict) -> Dict:
+    """``make_moe_ffn`` at ``capacity`` over a 1-D ``ep`` mesh of the world,
+    the parameters ``params`` (numpy) or ``init_moe_params(PRNGKey(key),
+    world, d_model, d_hidden)`` (returned on rank 0), the tokens ``x``
+    ``[T, d]``: this rank's output block; with ``cot`` also the gradients of
+    ``Σ out · cot`` with respect to the gate, this rank's expert weights and
+    its token block; with ``refusals`` the two ``ValueError``s; with
+    ``reference`` rank 0 also runs ``moe_reference`` and ``moe_dense_oracle``."""
+    mesh = make_ep_mesh(device=spec["device"])
+    dev = mesh_device(mesh)
+    E, cap = axis_sizes(mesh)["ep"], spec["capacity"]
+    out: Dict[str, Any] = {}
+    if spec.get("params") is not None:
+        params = from_jax_tree(spec["params"], dev)
+    else:
+        params = init_moe_params(PRNGKey(spec["key"]), E, spec["d_model"], spec["d_hidden"],
+                                 device=dev)
+        if dist.get_rank() == 0:
+            out["params"] = params
+    x = torch.from_numpy(np.asarray(spec["x"])).to(dev)
+    apply = make_moe_ffn(mesh, cap)
+    sharded = shard_moe_params(mesh, params)
+    with torch.no_grad():
+        out["out"] = apply(sharded, x).block
+    if spec.get("refusals"):
+        out["refusals"] = []
+        extra = shard_moe_params(mesh, {k: v if k == "gate" else torch.cat([v, v])
+                                        for k, v in params.items()})
+        for args in ((extra, x), (sharded, x[:-1])):
+            try:
+                apply(*args)
+                out["refusals"].append(None)
+            except ValueError as e:
+                out["refusals"].append(str(e))
+    if spec.get("cot") is not None:
+        leaves = {k: v._replace(block=v.block.clone().requires_grad_(True))
+                  for k, v in sharded.items()}
+        xs = shard_leaf(mesh, x, ("ep",))
+        xs = xs._replace(block=xs.block.requires_grad_(True))
+        y = apply(leaves, xs)
+        cot = shard_slice(torch.from_numpy(np.asarray(spec["cot"])).to(dev), ("ep",),
+                          axis_sizes(mesh), mesh_coords(mesh))
+        grads = torch.autograd.grad((y.block * cot).sum(),
+                                    [*(v.block for v in leaves.values()), xs.block])
+        out["grads"] = {**dict(zip(leaves, grads[:-1])), "x": grads[-1]}
+    if spec.get("reference") and dist.get_rank() == 0:
+        out["reference"] = moe_reference(params, x)
+        out["dense"] = moe_dense_oracle(params, x, E, cap)
+    return out
+
+
+def a2a_case(spec: Dict) -> Dict:
+    """``compat.all_to_all`` over a 1-D ``x`` mesh of the world, for each
+    ``(split_axis, concat_axis)`` of ``axes``: rank r's operand is its block
+    (along dimension 0) of the global ``x``; returns the result and the
+    gradient of ``Σ result · cot_r``, ``cot_r`` rank r's block of the global
+    ``cot`` of that pair."""
+    from fedml_tpu_torch.parallel.compat import all_to_all
+
+    mesh = make_1d_mesh(axis="x", device=spec["device"])
+    dev = mesh_device(mesh)
+    sizes, coords = axis_sizes(mesh), mesh_coords(mesh)
+    mine = shard_slice(torch.from_numpy(np.asarray(spec["x"])).to(dev), ("x",), sizes, coords)
+    out = []
+    with use_mesh(mesh):
+        for (split_axis, concat_axis), cot in zip(spec["axes"], spec["cots"]):
+            leaf = mine.clone().requires_grad_(True)
+            y = all_to_all(leaf, "x", split_axis=split_axis, concat_axis=concat_axis)
+            cot = shard_slice(torch.from_numpy(np.asarray(cot)).to(dev), ("x",), sizes, coords)
+            (grad,) = torch.autograd.grad((y * cot).sum(), [leaf])
+            out.append({"y": y.detach(), "grad": grad})
+    return {"pairs": out}
+
+
 CASES = {"mesh": mesh_case, "spmd": spmd_case, "hier": hier_case, "gossip": gossip_case,
          "compiled": compiled_case, "grads": grads_case, "ring": ring_case, "sp": sp_case,
          "dp_sp": dp_sp_case, "run_main": run_main_case, "tp": tp_case,
          "tp_grads": tp_grads_case, "dp_tp": dp_tp_case, "rules": rules_case,
-         "wire": wire_case, "collectives": collectives_case}
+         "wire": wire_case, "collectives": collectives_case, "pp": pp_case, "ep": ep_case,
+         "a2a": a2a_case}
 
 
 def run_cases(cases: Sequence[Tuple[str, Dict]]) -> List[Dict]:
@@ -775,6 +967,15 @@ def dryrun_cases(n_devices: int, device: str) -> List[Tuple[str, Dict]]:
     cases.append(("tp", dict(device=device, **tlm, key=0, tokens=toks,
                              targets=np.roll(toks, -1, axis=1), steps=1, lr=0.1,
                              single=True)))
+    # the JAX dryrun's draws, through the port's threefry
+    stages = [rng.normal(rng.fold_in(PRNGKey(2), s), (8, 8)) * 0.2 for s in range(n_devices)]
+    cases.append(("pp", dict(device=device, stage="tanh",
+                             stacked={"w": torch.stack(stages).numpy()},
+                             x=rng.normal(PRNGKey(3), (n_devices + 2, 2, 8)).numpy(),
+                             grads=True, reference=True)))
+    cases.append(("ep", dict(device=device, key=6, d_model=8, d_hidden=16, capacity=4,
+                             x=rng.normal(PRNGKey(7), (4 * n_devices, 8)).numpy(),
+                             reference=True)))
     return cases
 
 
@@ -800,8 +1001,14 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None, *,
     the mesh, the parts run and each part's largest |Δ| over every rank."""
     dev = resolve_device(device).type
     cases = dryrun_cases(n_devices, dev)
-    ranks = launch(run_cases, n_devices, cases, device=dev, timeout=timeout)
-    summary: Dict[str, Any] = {"mesh": ranks[0][0]["mesh"], "parts": [], "max_gap": {}}
+    return check_parts(cases, launch(run_cases, n_devices, cases, device=dev, timeout=timeout))
+
+
+def check_parts(cases: Sequence[Tuple[str, Dict]], ranks: List[List[Dict]]) -> Dict:
+    """Hold every rank's result of each dryrun part (``ranks[r][i]`` for
+    ``cases[i]``) against its oracle on rank 0; raises on any
+    disagreement, returns the mesh, the parts and each part's largest |Δ|."""
+    summary: Dict[str, Any] = {"mesh": ranks[0][0].get("mesh"), "parts": [], "max_gap": {}}
     for i, (kind, _) in enumerate(cases):
         ref = ranks[0][i]
         gaps = []
@@ -844,6 +1051,16 @@ def dryrun_multichip(n_devices: int, device: DeviceLike = None, *,
                                           "dp×tp round"))
                 np.testing.assert_allclose(res["metrics"]["loss_sum"],
                                            ref["single"]["metrics"]["loss_sum"], rtol=1e-4)
+            elif kind == "pp":
+                want = ref["reference"]
+                gaps.append(_assert_close(res["out"], want["out"], "pp pipeline forward"))
+                gaps.append(_assert_close({k: g for k, g in res["grads"].items()},
+                                          {k: g[rank] for k, g in want["grads"].items()},
+                                          "pp pipeline gradient"))
+            elif kind == "ep":
+                t = res["out"].shape[0]
+                gaps.append(_assert_close(res["out"], ref["dense"][rank * t:(rank + 1) * t],
+                                          "ep MoE dispatch"))
             else:
                 if res["round_idx"] != 1:
                     raise AssertionError(f"rank {rank}: dp×sp round did not complete")

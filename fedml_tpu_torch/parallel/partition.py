@@ -48,14 +48,14 @@ from fedml_tpu_torch.compress.codecs import (COMPRESS_STREAM, FlatLayout, get_co
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.parallel.compat import (all_gather, axis_index, mesh_device, psum,
-                                             use_mesh)
+                                             replicated_out, use_mesh)
 from fedml_tpu_torch.parallel.layout import (Placement, axis_sizes, blocks, check_divisible,
                                              is_sharded, map_tree, mesh_coords, place, rewrap,
                                              shard_leaf, shard_slice, spec_axes, unshard,
                                              zeros_placed)
 from fedml_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
 from fedml_tpu_torch.parallel.spmd import _as_tensor, shard_client_block
-from fedml_tpu_torch.parallel.tensor import mean_grads_over, reduce_from_tp
+from fedml_tpu_torch.parallel.tensor import mean_grads_over
 
 PyTree = Any
 
@@ -492,7 +492,7 @@ def make_rule_round_fn(
     @torch.no_grad()
     def round_fn(state, x, y, mask, num_samples, participation, slot_ids):
         with use_mesh(mesh), treelib.sharded_leaves(
-                sharded, lambda t: reduce_from_tp(t, MP_AXIS)):
+                sharded, lambda t: replicated_out(t, MP_AXIS)):
             return _round(state, x, y, mask, num_samples, participation, slot_ids)
 
     def _round(state, x, y, mask, num_samples, participation, slot_ids):

@@ -12,10 +12,11 @@ parameters, and the collectives are written out in a counterpart of
 - MLP down kernel                  [4E, E]  → (tp, None)  row chunk
 - embeddings, LayerNorms, the MLP down bias → replicated
 
-The column-parallel inputs pass through *copy-to-tp* (identity forward,
-psum backward) and the row-parallel outputs through *reduce-from-tp* (psum
-forward, identity backward), the two conjugate operators of Megatron; the
-MLP down bias is added after the sum.  (``compat.psum`` itself transposes
+The column-parallel inputs pass through ``compat.replicated_in`` (identity
+forward, psum backward: Megatron's copy-to-tp) and the row-parallel outputs
+through ``compat.replicated_out`` (psum forward, identity backward: its
+reduce-from-tp), the two conjugate operators of Megatron; the MLP down bias
+is added after the sum.  (``compat.psum`` itself transposes
 to a psum, which would multiply the gradient by the axis size here.)
 
 The qkv kernel is stored as JAX lays it out, a contiguous column chunk
@@ -47,7 +48,8 @@ from fedml_tpu_torch.models.base import Dense, ModelBundle
 from fedml_tpu_torch.models.transformer import (Block, LayerNorm, TransformerLM,
                                                 _default_attn, transformer_lm)
 from fedml_tpu_torch.parallel.compat import (_psum_leaves, all_gather, axis_index,
-                                             current_mesh, mesh_device, use_mesh)
+                                             current_mesh, mesh_device, replicated_in,
+                                             replicated_out, use_mesh)
 from fedml_tpu_torch.parallel import layout
 from fedml_tpu_torch.parallel.layout import (axis_sizes, blocks, is_sharded, rewrap,
                                              shard_leaf)
@@ -115,40 +117,6 @@ def sharded_param_names(specs: PyTree):
     return [k for k, s in specs["params"].items() if is_sharded(s)]
 
 
-# ---------------------------------------------------------------------------
-# the two conjugate operators of Megatron
-# ---------------------------------------------------------------------------
-
-
-class _CopyToTP(torch.autograd.Function):
-    """Identity forward; the cotangent psum'd over the axis: at a
-    column-parallel input, each rank's backward holds only its columns'
-    share of the input's gradient."""
-
-    @staticmethod
-    def forward(ctx, mesh, axis, x):
-        ctx.mesh, ctx.axis = mesh, axis
-        return x.view_as(x)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return None, None, _psum_leaves(ctx.mesh, [grad], ctx.axis)[0]
-
-
-class _ReduceFromTP(torch.autograd.Function):
-    """psum forward; the cotangent passed through: at a row-parallel
-    output, every rank's loss reads the same sum, so each rank's cotangent
-    already is its partial sum's."""
-
-    @staticmethod
-    def forward(ctx, mesh, axis, x):
-        return _psum_leaves(mesh, [x], axis)[0]
-
-    @staticmethod
-    def backward(ctx, grad):
-        return None, None, grad
-
-
 # The largest spread between the ranks' own gradients of the replicated
 # parameters that ``_MeanOverTP`` averaged, per mesh axis, since it was last
 # cleared: max over leaves of max|g - mean| / max|mean|, a 0-dim tensor on
@@ -198,19 +166,6 @@ def mean_grads_over(params: dict, names, axis: str) -> dict:
     return {**params, **dict(zip(names, synced))}
 
 
-def copy_to_tp(x: torch.Tensor, axis: str) -> torch.Tensor:
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _CopyToTP.apply(current_mesh(), axis, x)
-    return x
-
-
-def reduce_from_tp(x: torch.Tensor, axis: str) -> torch.Tensor:
-    mesh = current_mesh()
-    if torch.is_grad_enabled() and x.requires_grad:
-        return _ReduceFromTP.apply(mesh, axis, x)
-    return _psum_leaves(mesh, [x], axis)[0]
-
-
 # ---------------------------------------------------------------------------
 # the tensor-parallel transformer
 # ---------------------------------------------------------------------------
@@ -232,7 +187,7 @@ class TPMultiHeadAttention(nn.Module):
         B, L, E = x.shape
         H, tp = self.num_heads, self.tp
         D, r = E // H, axis_index(self.axis)
-        x = copy_to_tp(x, self.axis)
+        x = replicated_in(x, self.axis)
         # the whole [E, 3E] kernel: [q heads | k heads | v heads], head-major
         w = all_gather(self.Dense_0.kernel.to(x.dtype), self.axis, axis=1)
         attn = self.attn_fn or _default_attn
@@ -245,7 +200,7 @@ class TPMultiHeadAttention(nn.Module):
             q, k, v = (x @ w).view(B, L, 3, H, D).unbind(2)
             out = attn(q, k, v, self.causal).reshape(B, L, E)
             out = out[..., r * (E // tp):(r + 1) * (E // tp)]
-        return reduce_from_tp(out @ self.Dense_1.kernel.to(out.dtype), self.axis)
+        return replicated_out(out @ self.Dense_1.kernel.to(out.dtype), self.axis)
 
 
 class TPBlock(nn.Module):
@@ -262,9 +217,9 @@ class TPBlock(nn.Module):
 
     def forward(self, x):
         x = x + self.MultiHeadAttention_0(self.LayerNorm_0(x))
-        h = F.gelu(self.Dense_0(copy_to_tp(self.LayerNorm_1(x), self.axis)),
+        h = F.gelu(self.Dense_0(replicated_in(self.LayerNorm_1(x), self.axis)),
                    approximate="tanh")
-        down = reduce_from_tp(h @ self.Dense_1.kernel.to(h.dtype), self.axis)
+        down = replicated_out(h @ self.Dense_1.kernel.to(h.dtype), self.axis)
         return x + (down + self.Dense_1.bias.to(h.dtype))
 
 
@@ -333,7 +288,7 @@ def bind_tp(mesh, axis: str, specs: PyTree):
     summing the sharded leaves' squares over ``axis``."""
     # at one rank every block is its whole leaf, and the norms stay tree_sq_norm's
     names = sharded_param_names(specs) if axis_sizes(mesh)[axis] > 1 else []
-    with use_mesh(mesh), treelib.sharded_leaves(names, lambda t: reduce_from_tp(t, axis)):
+    with use_mesh(mesh), treelib.sharded_leaves(names, lambda t: replicated_out(t, axis)):
         yield
 
 

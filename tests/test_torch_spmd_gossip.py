@@ -128,4 +128,5 @@ def test_dryrun_multichip_on_8_cpu_ranks():
     summary = dryrun_multichip(8, device="cpu", timeout=240.0)
     assert summary["mesh"] == {"axes": {"clients": 8, "model": 1}, "devices": 8,
                                "platform": "cpu"}
-    assert summary["parts"] == ["spmd", "hier", "gossip", "sp", "dp_sp", "dp_tp", "tp"]
+    assert summary["parts"] == ["spmd", "hier", "gossip", "sp", "dp_sp", "dp_tp", "tp", "pp",
+                                "ep"]
