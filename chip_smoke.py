@@ -38,7 +38,15 @@ Phases, in order; any failure exits non-zero:
              the flash op's dq/dk/dv
              against autograd through the plain version (fp32), and in
              bf16 against the same backward fed the plain version's O and
-             LSE.
+             LSE.  Then ResNet-56's space-to-depth (s2d_stages 1/2/3) and
+             lane-padding (pad_stage1_to 32) variants on library convs
+             against the library ResNet-56 (fp32, 8 images at 32 px): eval
+             logits, loss and BatchNorm stats within the CPU test's
+             tolerances, the gradients no further from the library model's
+             float64 gradients than twice its own fp32 ones, a planted fault
+             (the stem's re-scattered taps transposed) beyond the gates; one
+             warm bf16 train step of 64 images per variant beside the kernel
+             route's (printed).
 4. main    — FedAvg over ResNet-56 (Bottleneck [6,6,6], full width, bf16
              compute, SGD lr 1e-3 momentum 0.9 wd 1e-3) on the CIFAR-10
              stand-in with Dirichlet(0.5) clients: two rounds of 4 clients x
@@ -319,6 +327,21 @@ Phases, in order; any failure exits non-zero:
              gradients of gate, experts and tokens against autograd through
              that oracle on one rank (1e-4), the all-to-all bytes against
              the count from the shapes.  No kernel runs in [ep].
+26. mux    — the muxed cohort on a mesh of ranks (``fedavg_mux``'s
+             ``mesh=``): [xdevice]'s ResNet-56 problem (conv kernel, bf16, 4
+             virtual clients, 2 rounds) as a muxer federation over an
+             in-process reactor TcpHub, on a 1-rank NCCL (1, 1) mesh beside
+             the mesh-free muxer: every upload frame equal by sha256, the
+             final models equal, 19 conv launches per forward, a planted
+             fault (two rows' slots swapped) beyond the gate; then 2 gloo
+             ranks (rank 0 the hub, server and muxer, rank 1 its resident
+             worker; in [sp]'s launch): the (2, 1) federation byte for byte
+             part 1's with each rank's conv launches, a 3-client cohort on
+             the indivisible fallback, the fedllm transformer at the bench
+             width cut to 2 layers on a (1, 2) mesh under FEDLLM_RULES byte
+             for byte the mesh-free muxer's with each rank's flash launches
+             on the wgmma route (deterministic algorithms; once more without
+             them, printed).
 
 ``--phases a,b,...`` runs only the named phases, in this order; every
 phase prints its seconds.
@@ -838,6 +861,136 @@ def phase_check():
         if not (torch.allclose(le, lb, rtol=1e-3, atol=1e-3)
                 and torch.allclose(te, tb, rtol=1e-3, atol=1e-3) and err_stats < 1e-3):
             fail(f"kernel-conv ResNet-56 disagrees with the library-conv model at {side} px")
+
+
+# [check]'s resnet_tpu execution variants: fp32 (TF32 off) on 8 images at 32
+# px against the library ResNet-56 at the CPU test's tolerances
+# (tests/test_torch_resnet.py) for the logits, loss and statistics; ResNet-56's
+# fp32 gradients at batch 8 are ~1% of their largest value from float64 on the
+# library model itself, so a variant's gradients are held to float64 at twice
+# the library model's own fp32 gap; then one warm bf16 train step each at the
+# bench's batch beside the kernel route's (printed, no gate)
+CHECK_VARIANT_TOL = dict(eval=(2e-4, 2e-5), loss=1e-5, stats=(2e-4, 1e-5), grads=2.0)
+CHECK_STEP_BATCH = 64
+
+
+def _variant_train(bundle, variables, x, y, dtype):
+    """Train loss, new BatchNorm statistics and parameter gradients of a
+    softmax-CE step of ``bundle`` in ``dtype``."""
+    import torch
+    import torch.nn.functional as F
+
+    cast = {c: {k: v.to(dtype) for k, v in sub.items()} for c, sub in variables.items()}
+    params = {k: v.clone().requires_grad_(True) for k, v in cast["params"].items()}
+    logits, new = bundle.apply_train({**cast, "params": params}, x.to(dtype))
+    loss = F.cross_entropy(logits.float(), y)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach().double(), new["batch_stats"], [g.double() for g in grads]
+
+
+def _variant_gaps(bundle, base, variables, x, y, ref) -> dict:
+    """``bundle`` against the library model ``base`` on the same variables,
+    as multiples of each gate (<= 1 passes): eval logits, train loss and
+    BatchNorm statistics against ``base``'s fp32 (max of |Δ| / (atol + rtol
+    |want|)); the gradients' largest |Δ| from ``base``'s float64 gradients
+    over CHECK_VARIANT_TOL["grads"] times ``base``'s own fp32 one (``ref``:
+    ``base``'s fp32 and float64 ``_variant_train``)."""
+    import torch
+
+    def ratio(got, want, tol):
+        rtol, atol = tol
+        got, want = got.detach(), want.detach()
+        return float(((got - want).abs() / (atol + rtol * want.abs())).max())
+
+    (lb, sb, gb), (_, _, g64) = ref
+    with torch.no_grad():
+        ev = ratio(bundle.apply_eval(variables, x), base.apply_eval(variables, x),
+                   CHECK_VARIANT_TOL["eval"])
+    lv, sv, gv = _variant_train(bundle, variables, x, y, torch.float32)
+    own = max(float((a - b).abs().max()) for a, b in zip(gb, g64))
+    got = max(float((a - b).abs().max()) for a, b in zip(gv, g64))
+    return {"eval": ev,
+            "loss": float((lv - lb).abs() / (CHECK_VARIANT_TOL["loss"] * lb.abs())),
+            "stats": max(ratio(sv[k], sb[k], CHECK_VARIANT_TOL["stats"]) for k in sb),
+            "grads": got / (CHECK_VARIANT_TOL["grads"] * own)}
+
+
+def phase_check_variants(device: str = "cuda") -> dict:
+    """ResNet-56's space-to-depth (``s2d_stages`` 1/2/3) and lane-padding
+    (``pad_stage1_to=32``) variants (``models/resnet_tpu.py``, library
+    convs, as in JAX) against the library ResNet-56 (``models/resnet.py``)
+    on the same variables, fp32 with TF32 off, 8 images at 32 px: eval
+    logits, train loss, BatchNorm statistics and gradients within the CPU
+    test's tolerances; a planted fault (the stem's re-scattered kernel with
+    its taps transposed) beyond them.  Then one warm bf16 local-update step
+    at batch 64 per variant beside the kernel route's and the library's,
+    printed with no gate (no kernel of the port runs in the variants)."""
+    import torch
+
+    import fedml_tpu_torch.models.resnet_tpu as rt
+    from fedml_tpu_torch.bench import TPU_VARIANTS
+    from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.models.resnet import resnet56
+
+    card = smi_line() if device == "cuda" else "cpu"
+    base = resnet56(device=device)
+    variables = base.init(PRNGKey(1))
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 32, 32, 3, generator=gen).to(device)
+    y = torch.randint(0, 10, (8,), generator=gen).to(device)
+    bundles = {k: rt.resnet56_tpu(conv_variant="xla", device=device, **kw)
+               for k, kw in TPU_VARIANTS.items()}
+    ref = (_variant_train(base, variables, x, y, torch.float32),
+           _variant_train(base, variables, x, y, torch.float64))
+    rec: dict = {"gpu": card, "gaps": {}, "library_fp32_grad_gap": max(
+        float((a - b).abs().max()) for a, b in zip(ref[0][2], ref[1][2]))}
+    for name, bundle in bundles.items():
+        gaps = _variant_gaps(bundle, base, variables, x, y, ref)
+        rec["gaps"][name] = gaps
+        print(f"[check] ResNet-56 {name} ({TPU_VARIANTS[name]}, library convs) vs the library "
+              f"ResNet-56, fp32, 8 x 32 px, as multiples of the gates {CHECK_VARIANT_TOL}: "
+              f"eval logits {gaps['eval']:.3g}, train loss {gaps['loss']:.3g}, BatchNorm stats "
+              f"{gaps['stats']:.3g}, gradients' gap from float64 over 2x the library model's "
+              f"({rec['library_fp32_grad_gap']:.3g}) {gaps['grads']:.3g} (gate 1) ({card})")
+        if not max(gaps.values()) <= 1.0:
+            fail(f"check: the {name} variant of ResNet-56 is not the library model's function")
+    scatter = rt.s2d_kernel_stride1
+
+    def transposed(w):  # the stem's (its only kernel with 3 input channels)
+        out = scatter(w)
+        return out.transpose(0, 1) if w.shape[2] == 3 else out
+
+    rt.s2d_kernel_stride1 = transposed
+    try:
+        fault = _variant_gaps(bundles["s2d1"], base, variables, x, y, ref)
+    finally:
+        rt.s2d_kernel_stride1 = scatter
+    rec["fault"] = fault
+    print(f"[check] planted fault (s2d1's stem kernel with its taps transposed): eval logits "
+          f"{fault['eval']:.3g}, gradients {fault['grads']:.3g} times the tolerance ({card})")
+    if not max(fault.values()) > 1.0:
+        fail("check: the planted fault (transposed s2d taps) passed the variant gates")
+    opt = make_client_optimizer("sgd", 0.001, momentum=0.9, weight_decay=1e-3)
+    steps = {"kernel": rt.resnet56_tpu(conv_variant="kernel", device=device),
+             "library": base, **bundles}
+    xs = torch.randn(1, CHECK_STEP_BATCH, 32, 32, 3, generator=gen).to(device)
+    ys = torch.randint(0, 10, (1, CHECK_STEP_BATCH), generator=gen).to(device)
+    mask = torch.ones(1, CHECK_STEP_BATCH, device=device)
+    rec["step_ms"] = {}
+    for name, bundle in steps.items():
+        lu = make_local_update(bundle, opt, 1, compute_dtype=torch.bfloat16)
+        times = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            new, _ = lu(variables, xs, ys, mask, PRNGKey(0))
+            float(next(iter(new["params"].values())).sum())  # waits for the card
+            times.append(1e3 * (time.perf_counter() - t0))
+        rec["step_ms"][name] = times[-1]
+    print(f"[check] one warm bf16 train step of {CHECK_STEP_BATCH} images at 32 px, ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in rec["step_ms"].items())
+          + f" (no gate; the variants run library convs) ({card})")
+    return rec
 
 
 def phase_flash_kernels():
@@ -3552,7 +3705,10 @@ def _host_gap(got: dict, want: dict, floor: float = 1.0) -> tuple:
     return worst
 
 
-def _xd_problem(device):
+def _xd_problem(device, samples: Optional[int] = None, batch: Optional[int] = None):
+    """[xdevice]'s problem: ResNet-56 on the conv kernel (bf16, [main]'s
+    optimizer) over XD_CLIENTS clients of <= ``samples`` (XD_SAMPLES) images
+    of the CIFAR-10 stand-in, the cohort's steps at ``batch`` (XD_BATCH)."""
     import torch
 
     from fedml_tpu_torch.core.client import make_client_optimizer, make_local_update
@@ -3563,12 +3719,12 @@ def _xd_problem(device):
     from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
 
     ds = shrink_dataset(load_cifar10(num_clients=XD_CLIENTS, partition="hetero",
-                                     partition_alpha=0.5, seed=0), XD_SAMPLES, 64)
+                                     partition_alpha=0.5, seed=0), samples or XD_SAMPLES, 64)
     bundle = resnet56_tpu(conv_variant="kernel", device=device)
     opt = make_client_optimizer("sgd", 0.001, momentum=0.9, weight_decay=1e-3)
     lu = make_local_update(bundle, opt, epochs=1, compute_dtype=torch.bfloat16)
     return dict(ds=ds, bundle=bundle, lu=lu, init=bundle.init(PRNGKey(0)),
-                steps=cohort_steps_per_epoch(ds, XD_BATCH))
+                steps=cohort_steps_per_epoch(ds, batch or XD_BATCH))
 
 
 def _hist_delta(before: dict, name: str) -> tuple:
@@ -6092,14 +6248,361 @@ def check_ep_ranks(ranks, wall: float, rec: dict, device: str, card: str,
     print(f"[ep] {n}-rank gloo launch {wall:.2f} s ([ep]'s work {body:.2f} s a rank) ({card})")
 
 
+# [mux]: the muxed cohort on a mesh of ranks (algorithms/fedavg_mux.py's mesh=,
+# parallel/partition.py::CohortEngine).  Part 1 runs [xdevice]'s ResNet-56
+# problem (the conv kernel, bf16) as a muxer federation over an in-process
+# reactor TcpHub on a 1-rank NCCL (1, 1) mesh beside the mesh-free muxer; part 2
+# runs on MUX_RANKS gloo ranks sharing the card (in the shared launch): the
+# ResNet-56 federation on a (2, 1) mesh, a 3-client cohort that takes the
+# indivisible fallback, and the fedllm transformer at the bench width cut to
+# MUX_LM's layers on a (1, 2) mesh under FEDLLM_RULES beside the mesh-free
+# muxer.  Byte-for-byte gates run under deterministic algorithms.
+MUX_CLIENTS, MUX_ROUNDS, MUX_FALLBACK, MUX_RANKS = XD_CLIENTS, 2, 3, 2
+MUX_LM = dict(dims=SP_DIMS, layers=2, L=1024, clients=2, batch=2, lr=3e-4)
+
+
+def _mux_lm_problem(g: dict, device) -> dict:
+    """The fedllm transformer at ``g``'s widths cut to ``g["layers"]`` layers,
+    its bf16 SGD local update and init (``PRNGKey(0)``), and a dataset of
+    ``g["clients"]`` clients of ``g["batch"]`` sequences of L tokens (numpy seed
+    4): one step a round."""
+    import numpy as np
+
+    from fedml_tpu_torch.core.rng import PRNGKey
+    from fedml_tpu_torch.core.types import FedDataset
+
+    bundle, lu = _tp_models(dict(dims=g["dims"], L=g["L"], lr=g["lr"]), device, g["layers"])
+    v, b, n = g["dims"]["vocab_size"], g["batch"], g["clients"]
+    toks = np.random.RandomState(4).randint(0, v, (n * b, g["L"])).astype(np.int32)
+    ds = FedDataset(train_x=toks, train_y=np.roll(toks, -1, axis=-1), test_x=None,
+                    test_y=None, test_client_idx=None, num_classes=v,
+                    train_client_idx={c: np.arange(c * b, (c + 1) * b) for c in range(n)})
+    return dict(ds=ds, lu=lu, init=bundle.init(PRNGKey(0)), steps=1, batch=b, clients=n)
+
+
+def _host_digest(variables: dict) -> str:
+    """sha256 over a variables tree's names and bytes in JAX's leaf order
+    (host numpy or tensors)."""
+    import hashlib
+
+    import numpy as np
+
+    from fedml_tpu_torch.compress import jax_leaves
+    from fedml_tpu_torch.core.tree import host_array
+
+    h = hashlib.sha256()
+    for path, leaf in jax_leaves(variables):
+        h.update("/".join(path).encode())
+        h.update(np.ascontiguousarray(host_array(leaf)).tobytes())
+    return h.hexdigest()
+
+
+def _mux_federation(p: dict, device, *, mesh=None, clients: Optional[int] = None,
+                    rounds: int = MUX_ROUNDS, plant=None) -> dict:
+    """One federation over an in-process reactor TcpHub: the port's server
+    manager and one ``FedAvgMuxClientManager`` driving ``clients`` virtual
+    clients (default ``p["clients"]``) over one connection, its cohorts on
+    ``mesh`` (this rank its root; the mesh's other ranks serve) or
+    mesh-free on ``device``; ``plant(mgr)`` may alter the muxer first.
+    Returns the sha256 of each upload frame by node and round, the final
+    model's digest, this process's kernel launches, the client forwards,
+    the wall seconds and the muxer's ``shard.*`` counters."""
+    import hashlib
+    import threading
+
+    from fedml_tpu_torch.algorithms.fedavg_cross_device import FedAvgServerManager
+    from fedml_tpu_torch.algorithms.fedavg_mux import FedAvgMuxClientManager
+    from fedml_tpu_torch.comm.mux import TcpMuxBackend
+    from fedml_tpu_torch.comm.tcp import TcpBackend, TcpHub
+    from fedml_tpu_torch.obs.telemetry import get_telemetry
+
+    clients = clients or p["clients"]
+    hub = TcpHub(mode="reactor")
+    backends, frames, errors = [], {}, []
+    try:
+        mux = TcpMuxBackend(list(range(1, clients + 1)), hub.host, hub.port)
+        backends.append(mux)
+        mgr = FedAvgMuxClientManager(mux, p["lu"], p["ds"], batch_size=p["batch"],
+                                     template_variables=p["init"], seed=0, mesh=mesh,
+                                     device=None if mesh is not None else device)
+        send = mgr._send_upload
+
+        def recording(node, reply):
+            frames[f"{node}/{reply.get('round_idx')}"] = hashlib.sha256(
+                reply.to_frame()).hexdigest()
+            send(node, reply)
+
+        mgr._send_upload = recording
+        if plant is not None:
+            plant(mgr)
+
+        def drive():
+            try:
+                mgr.run()
+            except Exception as e:  # reported below, on the phase's thread
+                errors.append(repr(e))
+
+        muxer = threading.Thread(target=drive, daemon=True)
+        muxer.start()
+        sb = TcpBackend(0, hub.host, hub.port)
+        backends.append(sb)
+        server = FedAvgServerManager(sb, p["init"], num_clients=clients,
+                                     clients_per_round=clients, comm_rounds=rounds, seed=0,
+                                     steps_per_epoch=p["steps"], stats_plane=False)
+        sb.await_peers(range(1, clients + 1), timeout=60)
+        before = get_telemetry().snapshot()["counters"]
+        reset_launches()
+        t0 = time.perf_counter()
+        st = sb.run_in_thread()
+        server.start()
+        st.join(timeout=300)
+        muxer.join(timeout=60)
+        wall = time.perf_counter() - t0
+        seen = read_launches()
+        if st.is_alive() or muxer.is_alive() or server.round_idx != rounds or errors:
+            fail(f"mux: the federation stopped at round {server.round_idx} ({errors})")
+    finally:
+        for b in backends:
+            b.stop()
+        hub.stop()
+    now = get_telemetry().snapshot()["counters"]
+    return {"frames": frames, "model": _host_digest(server.variables), "launches": seen,
+            "forwards": sum(mgr.rounds_trained.values()) * p["steps"], "wall_s": wall,
+            "counters": {k: v - before.get(k, 0.0) for k, v in now.items()
+                         if k.startswith("shard.") and v != before.get(k, 0.0)}}
+
+
+def _swap_slots(mgr) -> None:
+    """The planted fault: rows 0 and 1 of every mesh cohort keyed with each
+    other's slot."""
+    step = mgr._mesh.step
+
+    def swapped(round_idx, steps, ids, slots, variables):
+        return step(round_idx, steps, ids, [slots[1], slots[0], *slots[2:]], variables)
+
+    mgr._mesh.step = swapped
+
+
+def _conv_gate(label: str, run: dict, forwards: int, device: str) -> None:
+    seen = run["launches"]
+    if device == "cuda" and (seen["conv3x3_mxu"] != 19 * forwards
+                             or seen["conv3x3_mxu_tc"] != TC_PER_FORWARD * forwards):
+        fail(f"mux {label}: conv launches {seen}, expected {19 * forwards} "
+             f"({TC_PER_FORWARD * forwards} tensor-core) for {forwards} client forwards")
+    if seen["flash_attention_fwd"]:
+        fail(f"mux {label}: the ResNet-56 cohort launched the flash kernel")
+
+
+def phase_mux(device: str = "cuda", shared: Optional[list] = None):
+    """The muxed cohort on a mesh of ranks (``fedavg_mux``'s ``mesh=``) on
+    the card.
+
+    1. In process, [xdevice]'s ResNet-56 problem (conv kernel, bf16, 4
+       virtual clients of <= 128 samples, batch 64), MUX_ROUNDS rounds over
+       an in-process reactor TcpHub and the port's server manager: the
+       mesh-free muxer, then the muxer on a 1-rank NCCL (1, 1) mesh from the
+       same init; every upload frame equal by sha256 and the final models
+       equal, 19 conv launches per client forward (18 tensor-core); a planted
+       fault (two rows' slots swapped, one round) beyond the frame gate.
+    2. MUX_RANKS gloo ranks sharing the card (in ``launch_shared``'s launch
+       when given a ``shared`` list): rank 0 hosts the hub, the server and
+       the muxer, rank 1 is the resident worker.  On a (2, 1) mesh the same
+       federation, its frames and final model part 1's byte for byte, each
+       rank's conv launches 19 per forward of its two rows; a 3-client
+       cohort on the indivisible fallback (counted, rank 1 served none); on
+       a (1, 2) mesh under FEDLLM_RULES the fedllm transformer at the bench
+       width cut to 2 layers (bf16, 2 virtual clients, 1 step of 2
+       sequences of 1,024), its frames the mesh-free muxer's byte for byte,
+       each rank's flash launches on the wgmma route; and the (1, 2) run
+       once more outside deterministic mode, its frames' equality and the
+       ranks' replicated-gradient spread printed.
+
+    Part 1 and 2's byte gates run under deterministic algorithms
+    (``deterministic()``).  Returns the record, which ``check_mux_ranks``
+    completes once part 2 has run."""
+    from fedml_tpu_torch.parallel.compat import single_rank_group
+    from fedml_tpu_torch.parallel.mesh import make_dp_mp_mesh
+
+    card = smi_line() if device == "cuda" else "cpu"
+    rec = {"gpu": card}
+    t_phase = time.perf_counter()
+    with deterministic():
+        p = dict(_xd_problem(device), clients=MUX_CLIENTS, batch=XD_BATCH)
+        free = _mux_federation(p, device)
+        with single_rank_group(device):
+            mesh = make_dp_mp_mesh(1, 1, device=device)
+            on_mesh = _mux_federation(p, device, mesh=mesh)
+            fault = _mux_federation(p, device, mesh=mesh, rounds=1, plant=_swap_slots)
+    same = free["frames"] == on_mesh["frames"] and len(free["frames"]) == MUX_CLIENTS * MUX_ROUNDS
+    model_same = free["model"] == on_mesh["model"]
+    fault_same = {k: v for k, v in free["frames"].items() if k.endswith("/0")} == fault["frames"]
+    for label, run in (("mesh-free", free), ("1-rank mesh", on_mesh), ("planted fault", fault)):
+        _conv_gate(label, run, run["forwards"], device)
+    print(f"[mux] part 1, in process: {MUX_CLIENTS} virtual clients x {MUX_ROUNDS} rounds of "
+          f"ResNet-56 (conv kernel, bf16, batch {XD_BATCH}) over a reactor TcpHub: mesh-free "
+          f"muxer {free['wall_s']:.2f} s, on a 1-rank NCCL (1, 1) mesh {on_mesh['wall_s']:.2f} s; "
+          f"every upload frame equal by sha256 {same}, final models equal {model_same}; conv "
+          f"launches {on_mesh['launches']['conv3x3_mxu']} "
+          f"({on_mesh['launches']['conv3x3_mxu_tc']} tensor-core) for {on_mesh['forwards']} "
+          f"client forwards; planted fault (rows 0 and 1 keyed with each other's slot, 1 round): "
+          f"frames equal {fault_same} ({card})")
+    if not (same and model_same):
+        fail("mux: the 1-rank mesh muxer's uploads are not the mesh-free muxer's")
+    if fault_same:
+        fail("mux: the planted fault (swapped slots) passed the frame gate")
+    rec.update(part1={k: {x: run[x] for x in ("wall_s", "launches", "forwards", "model")}
+                      for k, run in (("free", free), ("mesh", on_mesh), ("fault", fault))},
+               frames=free["frames"], model=free["model"],
+               launches=sum(r["launches"]["conv3x3_mxu"] for r in (free, on_mesh, fault)),
+               tc_launches=sum(r["launches"]["conv3x3_mxu_tc"] for r in (free, on_mesh, fault)),
+               flash_launches=0, flash_wgmma_launches=0, part1_s=time.perf_counter() - t_phase)
+    del p
+    if device == "cuda":
+        import torch
+
+        torch.cuda.empty_cache()
+    rec["rank_spec"] = dict(device=device, lm=MUX_LM, samples=XD_SAMPLES, batch=XD_BATCH)
+    _hand_over(RankPart("mux", MUX_RANKS, _mux_rank, rec["rank_spec"],
+                        lambda ranks, wall, extra: check_mux_ranks(ranks, wall, rec, device,
+                                                                   card, extra_s=extra)),
+               shared, device, card)
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"[mux] phase time: {rec['phase_s']:.1f} s ({card})")
+    return rec
+
+
+def _mux_rank(spec: dict) -> dict:
+    """[mux]'s part 2 on one of MUX_RANKS gloo ranks: rank 0 runs each
+    federation (hub, server, muxer), the others serve its cohorts."""
+    import torch
+    import torch.distributed as dist
+
+    from fedml_tpu_torch.algorithms.fedavg_mux import serve_cohorts
+    from fedml_tpu_torch.parallel import tensor as tensor_mod
+    from fedml_tpu_torch.parallel.mesh import make_dp_mp_mesh
+
+    t_rank = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device, rank = spec["device"], dist.get_rank()
+    out: dict = {"rank": rank}
+
+    def run(name, p, mesh, **kw):
+        if rank == 0:
+            out[name] = _mux_federation(p, device, mesh=mesh, **kw)
+            return
+        reset_launches()
+        t0 = time.perf_counter()
+        served = serve_cohorts(mesh, p["lu"], p["ds"], p["init"], batch_size=p["batch"], seed=0)
+        out[name] = {"served": served, "launches": read_launches(),
+                     "wall_s": time.perf_counter() - t0}
+
+    with deterministic():
+        p = dict(_xd_problem(device, spec["samples"], spec["batch"]), clients=MUX_CLIENTS,
+                 batch=spec["batch"])
+        mesh = make_dp_mp_mesh(2, 1, device=device)
+        run("resnet", p, mesh)
+        run("fallback", p, mesh, clients=MUX_FALLBACK, rounds=1)
+        del p
+        q = _mux_lm_problem(spec["lm"], device)
+        mesh = make_dp_mp_mesh(1, 2, device=device)
+        if rank == 0:
+            out["lm_free"] = _mux_federation(q, device, rounds=1)
+        tensor_mod.REPLICA_SPREAD.clear()
+        run("lm", q, mesh, rounds=1)
+    tensor_mod.REPLICA_SPREAD.clear()
+    run("lm_nd", q, mesh, rounds=1)
+    out["lm_nd_spread"] = float(tensor_mod.REPLICA_SPREAD.get("mp", 0.0))
+    out["seconds"] = time.perf_counter() - t_rank
+    return out
+
+
+def check_mux_ranks(ranks, wall: float, rec: dict, device: str, card: str,
+                    extra_s: float = 0.0) -> None:
+    """[mux]'s part-2 gates over each rank's ``_mux_rank`` result."""
+    r0, workers = ranks[0], ranks[1:]
+    spec = rec["rank_spec"]
+    lm = spec["lm"]
+    res, fb = r0["resnet"], r0["fallback"]
+    steps = res["forwards"] // (MUX_CLIENTS * MUX_ROUNDS)
+    rows = MUX_CLIENTS // MUX_RANKS
+    same = res["frames"] == rec["frames"] and res["model"] == rec["model"]
+    lm_same = (r0["lm"]["frames"] == r0["lm_free"]["frames"]
+               and r0["lm"]["model"] == r0["lm_free"]["model"]
+               and len(r0["lm"]["frames"]) == lm["clients"])
+    nd_same = r0["lm_nd"]["frames"] == r0["lm_free"]["frames"]
+    fallbacks = fb["counters"].get("shard.cohort_fallbacks{reason=indivisible}", 0.0)
+    # (1, 2): every rank trains both rows, one step, a flash forward a layer
+    flash_want = lm["clients"] * lm["layers"]
+    print(f"[mux] part 2, {MUX_RANKS} gloo ranks sharing {device} (rank 0: hub, server, muxer; "
+          f"rank 1 its resident worker): ResNet-56 on a (2, 1) mesh {res['wall_s']:.2f} s, "
+          f"frames and final model part 1's byte for byte {same}; conv launches rank 0 "
+          f"{res['launches']['conv3x3_mxu']} ({res['launches']['conv3x3_mxu_tc']} tensor-core), "
+          + ", ".join(f"rank {w['rank']} {w['resnet']['launches']['conv3x3_mxu']} "
+                      f"({w['resnet']['launches']['conv3x3_mxu_tc']} tensor-core, "
+                      f"{w['resnet']['served']} cohorts served)" for w in workers)
+          + f" for {rows * MUX_ROUNDS * steps} client forwards a rank; a {MUX_FALLBACK}-client "
+          f"cohort: {fallbacks:.0f} indivisible fallback(s), rank 0's conv launches "
+          f"{fb['launches']['conv3x3_mxu']}, cohorts served by the workers "
+          f"{[w['fallback']['served'] for w in workers]} ({card})")
+    print(f"[mux] part 2: the fedllm transformer (width {lm['dims']['embed_dim']}, "
+          f"{lm['layers']} layers, L {lm['L']}, bf16, {lm['clients']} virtual clients x 1 step of "
+          f"{lm['batch']}) on a (1, 2) mesh under FEDLLM_RULES {r0['lm']['wall_s']:.2f} s "
+          f"(mesh-free {r0['lm_free']['wall_s']:.2f} s): frames and final model the mesh-free "
+          f"muxer's byte for byte {lm_same} (deterministic algorithms); flash launches rank 0 "
+          f"{r0['lm']['launches']['flash_attention_fwd']} "
+          f"({r0['lm']['launches']['flash_attention_fwd_wgmma']} wgmma), "
+          + ", ".join(f"rank {w['rank']} {w['lm']['launches']['flash_attention_fwd']} "
+                      f"({w['lm']['launches']['flash_attention_fwd_wgmma']} wgmma)"
+                      for w in workers)
+          + f", mesh-free {r0['lm_free']['launches']['flash_attention_fwd']}; outside "
+          f"deterministic mode: frames equal {nd_same}, the ranks' replicated-gradient spread "
+          f"{r0['lm_nd_spread']:.3g} (rank 0) / "
+          f"{[round(w['lm_nd_spread'], 12) for w in workers]} ({card})")
+    if not same:
+        fail("mux: the (2, 1) mesh muxer's uploads are not part 1's")
+    if not lm_same:
+        fail("mux: the (1, 2) mesh muxer's transformer uploads are not the mesh-free muxer's")
+    if fallbacks != 1 or any(w["fallback"]["served"] for w in workers):
+        fail(f"mux: the {MUX_FALLBACK}-client cohort did not take the indivisible fallback "
+             f"({fb['counters']})")
+    _conv_gate("rank 0 (2, 1)", res, rows * MUX_ROUNDS * steps, device)
+    _conv_gate("fallback", fb, MUX_FALLBACK * steps, device)
+    for w in workers:
+        _conv_gate(f"rank {w['rank']} (2, 1)", w["resnet"], rows * MUX_ROUNDS * steps, device)
+        if w["resnet"]["served"] != MUX_ROUNDS:
+            fail(f"mux: rank {w['rank']} served {w['resnet']['served']} cohorts")
+    lm_runs = [r0["lm"], r0["lm_free"], *(w["lm"] for w in workers)]
+    for run in lm_runs:
+        seen = run["launches"]
+        if device == "cuda" and not (seen["flash_attention_fwd"] == flash_want
+                                     == seen["flash_attention_fwd_wgmma"]):
+            fail(f"mux: flash launches {seen}, expected {flash_want} on the wgmma route")
+    nd = [r0["lm_nd"], *(w["lm_nd"] for w in workers)]
+    conv = [res, fb, *(w[k] for w in workers for k in ("resnet", "fallback"))]
+    rec["launches"] += sum(r["launches"]["conv3x3_mxu"] for r in conv)
+    rec["tc_launches"] += sum(r["launches"]["conv3x3_mxu_tc"] for r in conv)
+    rec["flash_launches"] += sum(r["launches"]["flash_attention_fwd"] for r in lm_runs + nd)
+    rec["flash_wgmma_launches"] += sum(r["launches"]["flash_attention_fwd_wgmma"]
+                                       for r in lm_runs + nd)
+    body = max(r["seconds"] for r in ranks)
+    rec.update(part2={"resnet_s": res["wall_s"], "fallback_s": fb["wall_s"],
+                      "lm_s": r0["lm"]["wall_s"], "lm_free_s": r0["lm_free"]["wall_s"],
+                      "lm_nd_s": r0["lm_nd"]["wall_s"], "nd_frames_equal": nd_same,
+                      "nd_spread": [r["lm_nd_spread"] for r in ranks]},
+               launch_s=wall, rank_mux_s=body, startup_s=wall - body - extra_s)
+    print(f"[mux] {MUX_RANKS}-rank gloo launch {wall:.2f} s ([mux]'s work {body:.2f} s a rank); "
+          f"conv3x3_mxu launches {rec['launches']} ({rec['tc_launches']} tensor-core), flash "
+          f"{rec['flash_launches']} ({rec['flash_wgmma_launches']} wgmma) ({card})")
+
+
 PHASES = ["build", "kernels", "check", "main", "fedllm", "rng", "north_star", "sim",
           "init", "compress", "pack", "zoo", "silo", "algos", "standalone", "family",
-          "imagenet", "comm", "xdevice", "tcp", "mesh", "tp", "sp", "pp", "ep"]
+          "imagenet", "comm", "xdevice", "tcp", "mesh", "tp", "sp", "pp", "ep", "mux"]
 # the phases whose ResNet-56 client forwards the kernels line's conv count sums
 CONV_PHASES = ["main", "north_star", "sim", "compress", "silo", "algos", "standalone",
-               "imagenet", "xdevice", "tcp", "mesh"]
+               "imagenet", "xdevice", "tcp", "mesh", "mux"]
 # the phases whose transformer forwards the kernels line's flash count sums
-FLASH_PHASES = ["fedllm", "sp", "tp", "pp"]
+FLASH_PHASES = ["fedllm", "sp", "tp", "pp", "mux"]
 
 
 def main() -> int:
@@ -6143,7 +6646,7 @@ def main() -> int:
         run("kernels", lambda: (phase_kernels(),
                                 phase_kernels(CONV_SHAPES_224, N_224, [("bf16", True, False)]),
                                 phase_flash_kernels()))
-        run("check", lambda: (phase_check(), phase_flash_check()))
+        run("check", lambda: (phase_check(), phase_flash_check(), phase_check_variants()))
         run("main", lambda: phase_main(args.profile))
         run("fedllm", lambda: phase_fedllm(args.profile))
         run("rng", phase_rng)
@@ -6178,6 +6681,7 @@ def main() -> int:
         run("sp", lambda: phase_sp(shared=shared))
         run("pp", lambda: phase_pp(shared=shared))
         run("ep", lambda: phase_ep(shared=shared))
+        run("mux", lambda: phase_mux(shared=shared))
         if shared:
             t0 = time.perf_counter()
             launch_shared(shared)

@@ -24,6 +24,23 @@ path, byte for byte:
   (``fedavg_cross_device``) with a per-virtual-client error-feedback
   store — encoded bytes are a pure function of (seed, round, slot).
 
+On a device mesh (``mesh=``, a ``(dp, mp)`` ``DeviceMesh`` over every rank
+of the process group, this process its rank 0) the cohort trains on all
+the ranks: the JAX module's sharded step (``cohort_shardings``: rows over
+``dp``, the broadcast model laid out by a partition-rule table over
+``mp``) as ``parallel/partition.py::CohortEngine``.  Rank 0 owns the
+whole federation side (the connection, the virtual endpoints, the delta
+bases, the error-feedback stores, the encode and the uploads); ranks
+1..W-1 are resident workers (``serve_cohorts``) that build the same
+problem from the same seed.  Each flush sends the workers one cohort over
+the group (round, the sorted ``(client_id, slot)`` rows, the steps, the
+synced variables); every rank packs and trains the rows its ``dp`` row
+owns, and the trained rows come back to rank 0 in row order, so the
+uploads are the mesh-free muxer's byte for byte.  A cohort that ``dp``
+does not divide trains on rank 0 alone (``shard.cohort_fallbacks
+{reason="indivisible"}``, the bytes unchanged).  A failing rank fails the
+muxer: ``run()`` raises, never absorbs it.
+
 Chaos/trace/obs parity: every virtual client sits behind its own
 ``VirtualNodeBackend`` (optionally chaos-wrapped per node), so
 FaultRule decisions, trace hop chains, and telemetry identities match
@@ -81,10 +98,171 @@ from fedml_tpu_torch.obs import flight
 from fedml_tpu_torch.obs.telemetry import get_telemetry
 from fedml_tpu_torch.utils.device import DeviceLike, resolve_device
 
-MESH_REFUSAL = ("a muxer cohort on a device mesh (mesh=/partition_rules=) is "
-                "not ported to fedml_tpu_torch yet (ROADMAP.md, queue A item 6c-2: "
-                "a group of resident worker ranks fed cohort by cohort; the rule "
-                "engine itself is parallel/partition.py)")
+# the mesh protocol's commands (the first value rank 0 broadcasts)
+_STOP, _COHORT = 0, 1
+
+
+class _PackCache:
+    """Per-client packs on the device, row-sliced from one cached pack:
+    packs are round-independent (the local update re-permutes per epoch
+    from the (seed, round, slot) stream) and per-client id-keyed, so row k
+    of any cohort pack is bit-identical to client k's single-client pack.
+    The cache holds ONE pack covering the superset of ids seen (seeded
+    with ``default_ids``) and every cohort — including a per-round SAMPLED
+    subset — row-slices it; it is rebuilt when the geometry changes or an
+    unseen id arrives, and its device copy is made once per build."""
+
+    def __init__(self, dataset: FedDataset, batch_size: int, seed: int, device,
+                 default_ids=()):
+        self.dataset, self.batch_size, self.seed = dataset, batch_size, seed
+        self.device, self.default_ids = device, set(default_ids)
+        self._key = None      # (steps_per_epoch, batch_size)
+        self._index = {}      # client id -> row
+        self._host = None     # (x, y, mask, num_samples) numpy
+        self._dev = None      # (x, y, mask) tensors on the device
+
+    def rows(self, client_ids: List[int], steps):
+        """(x, y, mask) per client on the device, and the sample counts."""
+        key = (steps, self.batch_size)
+        if self._key != key or any(c not in self._index for c in client_ids):
+            ids = sorted(set(client_ids) | self.default_ids)
+            pack = pack_clients(self.dataset, ids, self.batch_size,
+                                steps_per_epoch=steps, seed=self.seed)
+            self._key = key
+            self._index = {c: i for i, c in enumerate(ids)}
+            self._host = (np.asarray(pack.x), np.asarray(pack.y),
+                          np.asarray(pack.mask), np.asarray(pack.num_samples).copy())
+            self._dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                              for a in self._host[:3])
+        rows = [self._index[c] for c in client_ids]
+        x, y, mask = self._dev
+        return [(x[r], y[r], mask[r]) for r in rows], self._host[3][rows]
+
+    def steps_for(self, client_ids: List[int]) -> int:
+        """The steps per epoch ``pack_clients`` takes when given none, over
+        the ids this cache would pack for ``client_ids``."""
+        counts = [len(self.dataset.train_client_idx[c])
+                  for c in set(client_ids) | self.default_ids]
+        return max(1, int(np.ceil(max(max(counts), 1) / self.batch_size)))
+
+
+class _MeshCohort:
+    """Both ends of the mesh muxer's cohort protocol over the process
+    group of ``mesh`` (which must span the whole world; its first rank is
+    the root, the muxer): ``dispatch`` on the root, ``receive`` on the
+    workers, then ``step`` on every rank.  Every rank packs the rows its
+    ``dp`` row trains (nothing but the ids crosses the group) and keys them
+    as the single-client manager does."""
+
+    def __init__(self, mesh, local_update: LocalUpdateFn, dataset: FedDataset,
+                 template_variables, *, batch_size: int, seed: int,
+                 partition_rules=None):
+        import torch.distributed as dist
+
+        from fedml_tpu_torch.parallel.compat import mesh_device
+        from fedml_tpu_torch.parallel.layout import axis_sizes
+        from fedml_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
+        from fedml_tpu_torch.parallel.partition import (FEDLLM_RULES, CohortEngine,
+                                                        resolve_rules)
+
+        if int(mesh.mesh.numel()) != dist.get_world_size():
+            raise ValueError(f"the mesh muxer's mesh spans {int(mesh.mesh.numel())} ranks of "
+                             f"a world of {dist.get_world_size()}: give it every rank")
+        table = (resolve_rules(partition_rules) if isinstance(partition_rules, str)
+                 else (partition_rules or FEDLLM_RULES))
+        self.root = int(mesh.mesh.flatten()[0])
+        self.device = mesh_device(mesh)
+        sizes = axis_sizes(mesh)
+        self.dp, self.mp = sizes[DP_AXIS], sizes[MP_AXIS]
+        self.template = treelib.tree_map(
+            lambda l: (l.detach() if isinstance(l, torch.Tensor)
+                       else torch.from_numpy(np.array(l))).to(self.device),
+            template_variables)
+        self.engine = CohortEngine(mesh, local_update, self.template, table)
+        self.packs = _PackCache(dataset, batch_size, seed, self.device)
+        self.mesh, self.seed = mesh, seed
+
+    def _broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+
+        dist.broadcast(t, src=self.root)
+        return t
+
+    def _leaves(self, variables) -> list:
+        # in the template's order on every rank
+        return treelib.tree_leaves(treelib.tree_map(lambda _, v: v, self.template, variables))
+
+    def dispatch(self, round_idx: int, steps: int, client_ids: List[int],
+                 slots: List[int], variables) -> None:
+        """Root: send one cohort's command and its synced variables."""
+        from fedml_tpu_torch.parallel.compat import _buffers
+
+        n = len(client_ids)
+        self._broadcast(torch.tensor([_COHORT, round_idx, steps, n], dtype=torch.int64,
+                                     device=self.device))
+        self._broadcast(torch.tensor([*client_ids, *slots], dtype=torch.int64,
+                                     device=self.device))
+        for _, flat in _buffers(self._leaves(variables)).values():
+            self._broadcast(flat.contiguous())
+
+    def stop(self) -> None:
+        """Root: release the workers."""
+        self._broadcast(torch.tensor([_STOP, 0, 0, 0], dtype=torch.int64,
+                                     device=self.device))
+
+    def receive(self):
+        """Worker: the next cohort's ``(round_idx, steps, client_ids,
+        slots, variables)``, or None once the root stopped."""
+        from fedml_tpu_torch.parallel.compat import _buffers, _unpack
+
+        head = self._broadcast(torch.zeros(4, dtype=torch.int64, device=self.device))
+        cmd, round_idx, steps, n = (int(v) for v in head.cpu())
+        if cmd == _STOP:
+            return None
+        body = [int(v) for v in self._broadcast(
+            torch.zeros(2 * n, dtype=torch.int64, device=self.device)).cpu()]
+        like = self._leaves(self.template)
+        bufs = {dt: (idx, self._broadcast(torch.empty_like(flat)))
+                for dt, (idx, flat) in _buffers(like).items()}
+        leaves = iter(_unpack(like, bufs))
+        variables = treelib.tree_map(lambda _: next(leaves), self.template)
+        return round_idx, steps, body[:n], body[n:], variables
+
+    def step(self, round_idx: int, steps: int, client_ids: List[int], slots: List[int],
+             variables):
+        """Every rank: train this rank's rows.  The whole cohort's trained
+        variables, metrics and sample counts come back in row order."""
+        from fedml_tpu_torch.parallel.compat import use_mesh
+        from fedml_tpu_torch.parallel.layout import unshard
+        from fedml_tpu_torch.parallel.mesh import DP_AXIS
+
+        rows = self.engine.rows(len(client_ids))
+        data, counts = self.packs.rows([client_ids[r] for r in rows], steps)
+        k_train = rnglib.fold_in(rnglib.fold_in(rnglib.PRNGKey(self.seed), round_idx), 0)
+        trained, metrics = self.engine(variables, data,
+                                       [rnglib.fold_in(k_train, slots[r]) for r in rows])
+        with use_mesh(self.mesh):
+            counts = unshard(torch.from_numpy(counts).to(self.device), (DP_AXIS,))
+        return trained, metrics, counts.cpu().numpy()
+
+
+def serve_cohorts(mesh, local_update: LocalUpdateFn, dataset: FedDataset,
+                  template_variables, *, batch_size: int, seed: int = 0,
+                  partition_rules=None) -> int:
+    """A resident worker rank of a mesh muxer (every rank of ``mesh`` but
+    its first): train cohorts as the muxer sends them, until it stops.
+    Build ``local_update``, ``dataset`` and the template as the muxer
+    does, from the same seed.  Returns the cohorts served; an exception
+    propagates (the muxer fails with it)."""
+    cohort = _MeshCohort(mesh, local_update, dataset, template_variables,
+                         batch_size=batch_size, seed=seed, partition_rules=partition_rules)
+    served = 0
+    while True:
+        job = cohort.receive()
+        if job is None:
+            return served
+        cohort.step(*job)
+        served += 1
 
 
 class _VirtualEndpoint(NodeManager):
@@ -115,6 +293,10 @@ class _VirtualEndpoint(NodeManager):
         self.cohort._on_finish(self.backend.node_id, msg)
 
 
+class _MeshFailure(RuntimeError):
+    """A cohort's dispatch or step across the mesh's ranks failed."""
+
+
 class FedAvgMuxClientManager:
     """Drives every virtual client of one muxed connection.
 
@@ -139,11 +321,7 @@ class FedAvgMuxClientManager:
     _GUARDED_BY = {
         "_pending": "_plock",
         "_bases": "_train_lock",
-        "_pack_key": "_train_lock",
-        "_pack_ids": "_train_lock",
-        "_pack_index": "_train_lock",
-        "_pack_host": "_train_lock",
-        "_pack_dev": "_train_lock",
+        "_packs": "_train_lock",
     }
 
     def __init__(
@@ -165,8 +343,9 @@ class FedAvgMuxClientManager:
         partition_rules=None,
         device: DeviceLike = None,
     ):
-        if mesh is not None or partition_rules:
-            raise NotImplementedError(MESH_REFUSAL)
+        if partition_rules and mesh is None:
+            raise ValueError("partition_rules picks the mesh cohort's rule table; it "
+                             "needs mesh=")
         self.mux = mux
         # open-loop traffic model (faults/traffic.TrafficModel): every
         # virtual client gets its own seeded per-round arrival decision
@@ -187,9 +366,17 @@ class FedAvgMuxClientManager:
         # the walkback in the displaced connection's queues
         self._last_rebind_round = -1
         # the cohort trains on this device (the card unless the caller
-        # asks for the CPU); syncs decode onto it, as the per-process
-        # client's do
-        self.device = resolve_device(device)
+        # asks for the CPU; on a mesh, this rank's); syncs decode onto it,
+        # as the per-process client's do
+        if mesh is not None:
+            from fedml_tpu_torch.parallel.compat import mesh_device
+
+            self.device = mesh_device(mesh)
+            if device is not None and resolve_device(device).type != self.device.type:
+                raise ValueError(f"device {device!r} is not the mesh's "
+                                 f"({mesh.device_type})")
+        else:
+            self.device = resolve_device(device)
         self.local_update = local_update.fn
         self.dataset = dataset
         self.batch_size = batch_size
@@ -211,19 +398,21 @@ class FedAvgMuxClientManager:
         # bigger cohort (or tear an EF residual) mid-step
         self._train_lock = make_lock("FedAvgMuxClientManager._train_lock")
         self._finished = threading.Event()
-        # cohort pack cache: packs are round-independent (the local
-        # update re-permutes per epoch from the (seed, round, slot)
-        # stream) and per-client id-keyed, so row k of any cohort pack
-        # is bit-identical to client k's single-client pack.  The cache
-        # holds ONE pack covering the superset of ids seen (seeded with
-        # this muxer's default client range) and every cohort —
-        # including a per-round SAMPLED subset — row-slices it; the
-        # device copy of the whole pack is made once.
-        self._pack_key = None        # (steps_per_epoch, batch_size)
-        self._pack_ids = None        # ids the cached pack covers, in order
-        self._pack_index = None      # client id -> row
-        self._pack_host = None       # (x, y, mask, num_samples) numpy
-        self._pack_dev = None        # (x, y, mask) tensors on the device
+        # the cohort pack cache, seeded with this muxer's client range
+        self._packs = _PackCache(dataset, batch_size, seed, self.device,
+                                 default_ids=[n - 1 for n in mux.node_ids])
+        # the dp x mp mesh's cohort protocol (None: the mesh-free loop);
+        # _mesh_error is the failure that ends the muxer, set by a flush
+        # or by the entry point's watch over the worker ranks
+        self._mesh = None
+        self._mesh_error: Optional[BaseException] = None
+        if mesh is not None:
+            self._mesh = _MeshCohort(mesh, local_update, dataset, self.template,
+                                     batch_size=batch_size, seed=seed,
+                                     partition_rules=partition_rules)
+            tel = get_telemetry()
+            tel.gauge_set("shard.mesh_dp", self._mesh.dp)
+            tel.gauge_set("shard.mesh_mp", self._mesh.mp)
         # delta-broadcast base cache, shared by the whole co-located
         # cohort (chain models are globally identical): round -> OWNED
         # copy of the reconstructed model — same two contracts as the
@@ -289,7 +478,7 @@ class FedAvgMuxClientManager:
     def _flush_locked(self) -> None:  # fedlint: holds=_train_lock
         with self._plock:
             pending, self._pending = self._pending, []
-        if not pending:
+        if not pending or self._mesh_error is not None:
             return
         batch_round = max(
             (m.get(MSG_ARG_KEY_ROUND_INDEX) for _, m in pending
@@ -350,6 +539,11 @@ class FedAvgMuxClientManager:
             ref_msg, entries = groups[key]
             try:
                 trained = self._train_cohort(ref_msg, entries) or trained
+            except _MeshFailure as e:
+                # a rank of the mesh failed (or its group broke): the
+                # muxer goes down with it, never absorbs it
+                self.fail_mesh(e.__cause__ or e)
+                return
             except Exception:
                 # one cohort's failure (undecodable sync, engine bug)
                 # must not take down the other groups or the reader
@@ -377,36 +571,19 @@ class FedAvgMuxClientManager:
         )
         return variables
 
-    def _cohort_pack(self, client_ids: List[int], steps):  # fedlint: holds=_train_lock
-        """(x, y, mask) per client on the device and the sample counts,
-        row-sliced from the cached cohort pack (rebuilt when the
-        geometry changes or an unseen id arrives)."""
-        pack_key = (steps, self.batch_size)
-        if (self._pack_key != pack_key
-                or any(c not in self._pack_index for c in client_ids)):
-            base_ids = sorted(
-                set(client_ids) | {n - 1 for n in self.mux.node_ids}
-            )
-            pack = pack_clients(
-                self.dataset, base_ids, self.batch_size,
-                steps_per_epoch=steps, seed=self.seed,
-            )
-            self._pack_key = pack_key
-            self._pack_ids = base_ids
-            self._pack_index = {c: i for i, c in enumerate(base_ids)}
-            self._pack_host = (
-                np.asarray(pack.x), np.asarray(pack.y),
-                np.asarray(pack.mask),
-                np.asarray(pack.num_samples).copy(),
-            )
-            self._pack_dev = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-                for a in self._pack_host[:3]
-            )
-        rows = [self._pack_index[c] for c in client_ids]
-        x, y, mask = self._pack_dev
-        return ([(x[r], y[r], mask[r]) for r in rows],
-                self._pack_host[3][rows])
+    def _local_rows(self, variables, client_ids, slots, steps, round_idx):  # fedlint: holds=_train_lock
+        """The cohort trained here, one client after another in node order:
+        ``(new_variables, metrics, num_samples)`` per row, each trained as
+        it is asked for (a client's upload leaves before the next trains)."""
+        data, num_samples = self._packs.rows(client_ids, steps)
+        # identical stream to the compiled round engine and the
+        # single-client manager: key→round→train→slot
+        k_round = rnglib.fold_in(rnglib.PRNGKey(self.seed), round_idx)
+        k_train = rnglib.fold_in(k_round, 0)
+        for k, (x, y, mask) in enumerate(data):
+            new_vars, metrics = self.local_update(
+                variables, x, y, mask, rnglib.fold_in(k_train, slots[k]))
+            yield new_vars, metrics, num_samples[k]
 
     def _train_cohort(self, ref_msg: Message, entries: List[tuple]) -> bool:  # fedlint: holds=_train_lock
         entries = sorted(entries, key=lambda e: e[0])
@@ -463,17 +640,25 @@ class FedAvgMuxClientManager:
                 ci = node - 1
             client_ids.append(int(ci))
             slots.append(int(msg.get("slot", ci)))
-        data, num_samples = self._cohort_pack(client_ids, steps)
-        # identical stream to the compiled round engine and the
-        # single-client manager: key→round→train→slot
-        k_round = rnglib.fold_in(rnglib.PRNGKey(self.seed), round_idx)
-        k_train = rnglib.fold_in(k_round, 0)
-        for k, (node, msg) in enumerate(entries):
-            x, y, mask = data[k]
-            new_vars, metrics = self.local_update(
-                variables, x, y, mask, rnglib.fold_in(k_train, slots[k]))
+        if self._mesh is not None and len(entries) % self._mesh.dp == 0:
+            if steps is None:
+                # the steps the mesh-free pack would take, sent to every rank
+                steps = self._packs.steps_for(client_ids)
+            try:
+                self._mesh.dispatch(round_idx, steps, client_ids, slots, variables)
+                rows = zip(*self._mesh.step(round_idx, steps, client_ids, slots, variables))
+            except Exception as e:
+                raise _MeshFailure("the mesh cohort failed") from e
+        else:
+            if self._mesh is not None:
+                # a cohort the dp axis can't split evenly (chaos
+                # stragglers, churn remainders) trains here, unsharded:
+                # the same bytes
+                get_telemetry().inc("shard.cohort_fallbacks", reason="indivisible")
+            rows = self._local_rows(variables, client_ids, slots, steps, round_idx)
+        for k, ((node, msg), (new_vars, metrics, n)) in enumerate(zip(entries, rows)):
             self._upload(node, msg, new_vars, variables, round_idx,
-                         codec_name, slots[k], float(num_samples[k]),
+                         codec_name, slots[k], float(n),
                          {m: float(v) for m, v in metrics.items()},
                          delay_s=decisions.get(node, {}).get("delay_s",
                                                              0.0))
@@ -533,8 +718,40 @@ class FedAvgMuxClientManager:
 
     # -- lifecycle / evidence ----------------------------------------------
     def run(self) -> None:
-        """Drive the shared reader loop (returns on FINISH/stop)."""
-        self.mux.run()
+        """Drive the shared reader loop (returns on FINISH/stop).  On a
+        mesh, then release the worker ranks; a failed rank raises
+        ``RuntimeError`` here."""
+        try:
+            self.mux.run()
+        finally:
+            self.release_mesh()
+        if self._mesh_error is not None:
+            raise RuntimeError(
+                f"muxer {self.mux.node_id}: a rank of its mesh failed") from self._mesh_error
+
+    def fail_mesh(self, error) -> None:
+        """End the muxer for a failed rank (``error``: its exception or
+        report): no cohort is sent again, the connection stops, and
+        ``run()`` raises.  Safe from any thread (the entry point's watch
+        over the worker ranks calls it)."""
+        if self._mesh is None or self._mesh_error is not None:
+            return
+        self._mesh_error = (error if isinstance(error, BaseException)
+                            else RuntimeError(str(error)))
+        logging.error("muxer %d: a rank of its mesh failed: %s", self.mux.node_id, error)
+        self.mux.stop()
+
+    def release_mesh(self) -> None:
+        """Stop the worker ranks once (nothing on a failed mesh, or with
+        no mesh): after the federation, before the group is torn down."""
+        with self._train_lock:
+            mesh, self._mesh = self._mesh, None
+            if mesh is None or self._mesh_error is not None:
+                return
+            try:
+                mesh.stop()
+            except Exception as e:  # a worker gone since the last cohort
+                self._mesh_error = e
 
     @property
     def upload_digests(self) -> Dict[int, str]:

@@ -14,7 +14,9 @@ Each run prints ONE JSON line with the JAX bench's metric names:
   rounds per call of ``make_multi_round_fn``.  ``conv_variant="kernel"``
   runs every 3x3 conv on the hand-written Hopper conv kernel
   (``models/resnet_tpu.py``), ``"baseline"`` on the library conv
-  (``models/resnet.py``).  Reported as samples/s, and against an
+  (``models/resnet.py``), and ``"s2d1"``/``"s2d2"``/``"s2d3"``/``"pad32"``
+  on ``resnet_tpu``'s space-to-depth and lane-padding variants (library
+  convs, as in JAX).  Reported as samples/s, and against an
   estimated reference-GPU rate of 1500 samples/s (the JAX bench's
   ``vs_baseline``).
 - ``build_fedllm``: next-token training of a GPT-2-shaped decoder (default
@@ -45,10 +47,17 @@ FEDLLM_RPC = 4
 REFERENCE_GPU_SAMPLES_PER_SEC = 1500.0
 
 
-def _not_ported(what: str) -> NotImplementedError:
+# the s2d/padding execution variants of resnet_tpu (JAX's bench names), on
+# library convs as in JAX
+TPU_VARIANTS = {"s2d1": {"s2d_stages": 1}, "s2d2": {"s2d_stages": 2},
+                "s2d3": {"s2d_stages": 3}, "pad32": {"pad_stage1_to": 32}}
+
+
+def _unroll_refusal(flag: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} has no counterpart in the eager PyTorch port (ROADMAP.md, "
-        "queue A item 7: the TPU tiling and loop knobs)")
+        f"{flag} is an unroll factor for XLA's while loop: it changes no result, so "
+        "the eager port has no function to port for it; its eager counterpart, a CUDA "
+        "graph over a step, is speed work (ROADMAP.md, queue A item 7)")
 
 
 def build_north_star(
@@ -82,11 +91,14 @@ def build_north_star(
         from fedml_tpu_torch.models.resnet import resnet56
 
         bundle = resnet56(num_classes=10, device=dev)
-    elif conv_variant in ("s2d1", "s2d2", "s2d3", "pad32"):
-        raise _not_ported(f"conv_variant {conv_variant!r}")
+    elif conv_variant in TPU_VARIANTS:
+        from fedml_tpu_torch.models.resnet_tpu import resnet56_tpu
+
+        bundle = resnet56_tpu(num_classes=10, conv_variant="xla", device=dev,
+                              **TPU_VARIANTS[conv_variant])
     else:
-        raise ValueError(
-            f"conv_variant must be 'kernel' or 'baseline', got {conv_variant!r}")
+        raise ValueError(f"conv_variant must be one of "
+                         f"{['kernel', 'baseline', *TPU_VARIANTS]}, got {conv_variant!r}")
     opt = make_client_optimizer("sgd", 0.001, momentum=0.9, weight_decay=0.001)
     local_update = make_local_update(
         bundle, opt, epochs=epochs, compute_dtype=resolve_compute_dtype(dtype))
@@ -190,12 +202,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default="bf16",
                    help="compute dtype of the forward/backward (fp32 masters)")
     p.add_argument("--conv-variant", default="kernel",
-                   help="north_star: kernel (the Hopper conv kernel) or "
-                   "baseline (the library conv)")
+                   choices=["kernel", "baseline", *TPU_VARIANTS],
+                   help="north_star: kernel (the Hopper conv kernel), baseline (the "
+                   "library conv), or resnet_tpu's execution variants on library "
+                   "convs: s2dK folds 2x2 pixel blocks into channels through stage K, "
+                   "pad32 pads stage 1's 16-wide convs to 32")
     p.add_argument("--unroll", type=int, default=None,
-                   help="the JAX step-scan unroll: not ported, raises")
+                   help="the JAX step-scan unroll (an XLA loop hint): raises")
     p.add_argument("--client-unroll", type=int, default=None,
-                   help="the JAX client-loop unroll: not ported, raises")
+                   help="the JAX client-loop unroll (an XLA loop hint): raises")
     p.add_argument("--seq-len", type=int, default=1024)
     p.add_argument("--embed-dim", type=int, default=1280)
     p.add_argument("--num-layers", type=int, default=12)
@@ -213,9 +228,9 @@ def main(argv=None) -> dict:
 
     args = _parser().parse_args(argv)
     if args.unroll is not None:
-        raise _not_ported("--unroll")
+        raise _unroll_refusal("--unroll")
     if args.client_unroll is not None:
-        raise _not_ported("--client-unroll")
+        raise _unroll_refusal("--client-unroll")
     defaults = ({"clients": 10, "batch": 64, "steps": 24,
                  "rounds_per_call": NORTH_STAR_RPC}
                 if args.workload == "north_star"

@@ -19,8 +19,10 @@ default is the CUDA card and a process without one raises):
     python -m fedml_tpu_torch.experiments.distributed_fedavg --role client \
         --port P --node-id 1 --device cpu
 
-plus ``muxer`` (many virtual clients over one connection) and
-``edge_hub`` (the tree topology's middle tier).  The frames are the JAX
+plus ``muxer`` (many virtual clients over one connection; with ``--mesh
+dp,mp [--partition-rules fedllm|resnet|file.json]`` its cohorts train on a
+mesh of ranks it spawns) and ``edge_hub`` (the tree topology's middle
+tier).  The frames are the JAX
 package's byte for byte, so any role may face a JAX peer on one hub.
 ``FEDML_TPU_FORCE_CPU=1`` in a process's environment means ``--device
 cpu``.  Every process builds the same synthetic dataset
@@ -32,6 +34,7 @@ spawns the whole federation as subprocesses.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import signal
@@ -39,11 +42,6 @@ import subprocess
 import sys
 import time
 from typing import Optional
-
-
-MESH_REFUSAL = ("--mesh/--partition-rules (a muxer cohort on a device mesh) "
-                "is not ported to fedml_tpu_torch yet (ROADMAP.md, queue A "
-                "item 6c-2: the muxed cohort on a mesh of resident worker ranks)")
 
 
 def _device(args) -> Optional[str]:
@@ -558,13 +556,51 @@ def run_client(args) -> None:
     }), flush=True)
 
 
+def _mesh_worker(spec: dict) -> int:
+    """A resident worker rank of a mesh muxer: the muxer's problem, built
+    from the same seed, and its cohorts until the muxer stops."""
+    from fedml_tpu_torch.algorithms.fedavg_mux import serve_cohorts
+    from fedml_tpu_torch.parallel.mesh import make_dp_mp_mesh
+
+    ds, _, init, lu = _build_problem(spec["seed"], spec["num_clients"], spec["input_dim"],
+                                     spec["train_samples"], spec["device"])
+    mesh = make_dp_mp_mesh(spec["dp"], spec["mp"], device=spec["device"])
+    return serve_cohorts(mesh, lu, ds, init, batch_size=spec["batch_size"],
+                         seed=spec["seed"], partition_rules=spec["partition_rules"])
+
+
+def _muxer_mesh(args, device, stack: contextlib.ExitStack):
+    """``--mesh dp,mp``: this process becomes rank 0 of ``dp * mp`` ranks,
+    the others spawned as resident workers (``_mesh_worker``; NCCL with a
+    card a rank, gloo where ranks share one or on the CPU) for as long as
+    ``stack`` lives.  An ``auto`` axis absorbs the cards (one device on the
+    CPU).  Returns the mesh and the ranks' handle."""
+    import torch
+
+    from fedml_tpu_torch.parallel.compat import host_ranks
+    from fedml_tpu_torch.parallel.mesh import make_dp_mp_mesh, parse_mesh_spec
+    from fedml_tpu_torch.utils.device import resolve_device
+
+    on_card = resolve_device(device).type == "cuda"
+    dp, mp = parse_mesh_spec(args.mesh, device_count=torch.cuda.device_count()
+                             if on_card else 1)
+    spec = dict(seed=args.seed, num_clients=args.num_clients, input_dim=args.input_dim,
+                train_samples=args.train_samples, batch_size=args.batch_size,
+                device=device, dp=dp, mp=mp, partition_rules=args.partition_rules or None)
+    ranks = stack.enter_context(host_ranks(_mesh_worker, dp * mp, spec, device=device))
+    return make_dp_mp_mesh(dp, mp, device=device), ranks
+
+
 def run_muxer(args) -> None:
     """ONE process driving ``--virtual-clients`` virtual clients over
     ONE hub connection (node ids ``--node-id .. --node-id + N - 1``):
     hello-v2 registration, local demux of per-connection broadcast
     copies, and one training pass over each round's co-located cohort —
-    client count and process count decouple."""
+    client count and process count decouple.  With ``--mesh`` the cohort
+    trains on a mesh of ranks (``fedavg_mux``'s docstring); a failed rank
+    fails this process."""
     from fedml_tpu_torch.algorithms.fedavg_mux import FedAvgMuxClientManager
+    from fedml_tpu_torch.obs.telemetry import get_telemetry
 
     device = _device(args)
     ds, bundle, init, lu = _build_problem(args.seed, args.num_clients,
@@ -573,62 +609,72 @@ def run_muxer(args) -> None:
     node_ids = list(range(args.node_id,
                           args.node_id + max(1, args.virtual_clients)))
     plan = _chaos_plan()
-    reconnect = args.auto_reconnect if args.auto_reconnect >= 0 else 3
-    mux = _connect_mux_backend(node_ids, args.host, args.port,
-                               auto_reconnect=reconnect, wire=args.wire,
-                               **_lane_kwargs(args))
-    # chaos parity: the plan wraps each VIRTUAL node's backend, so
-    # fault decisions are keyed by virtual node id — the exact per-node
-    # streams the one-process-per-client topology would draw
-    wrap = None
-    if plan is not None and "client" in plan.roles:
-        from fedml_tpu_torch.faults import ChaosBackend
+    with contextlib.ExitStack() as stack:
+        mesh = ranks = None
+        if args.mesh:
+            # the worker ranks join before the hub connection opens
+            mesh, ranks = _muxer_mesh(args, device, stack)
+        reconnect = args.auto_reconnect if args.auto_reconnect >= 0 else 3
+        mux = _connect_mux_backend(node_ids, args.host, args.port,
+                                   auto_reconnect=reconnect, wire=args.wire,
+                                   **_lane_kwargs(args))
+        # chaos parity: the plan wraps each VIRTUAL node's backend, so
+        # fault decisions are keyed by virtual node id — the exact per-node
+        # streams the one-process-per-client topology would draw
+        wrap = None
+        if plan is not None and "client" in plan.roles:
+            from fedml_tpu_torch.faults import ChaosBackend
 
-        wrap = lambda vb: ChaosBackend(vb, plan)  # noqa: E731
-    # crash schedule: the flag wins; otherwise ANY virtual id with a
-    # plan-scheduled crash takes the whole muxer down at the EARLIEST
-    # such round — a process crash is process-granular, so one virtual
-    # client's schedule costs its co-located peers too (the honest
-    # muxer blast radius; chaos_run's muxer_crash scenario)
-    crash_rounds = [
-        r for r in (_resolve_crash_round(args.crash_at_round, plan, n)
-                    for n in node_ids)
-        if r is not None
-    ]
-    mgr = FedAvgMuxClientManager(
-        mux, lu, ds, batch_size=args.batch_size,
-        template_variables=init, seed=args.seed,
-        train_delay=args.train_delay,
-        crash_at_round=min(crash_rounds) if crash_rounds else None,
-        wrap_backend=wrap,
-        rejoin_every_round=args.rejoin_every_round,
-        traffic=_traffic_model("muxer"),
-        device=device,
-    )
-    mlog = _node_metrics_logger(args.run_dir, f"mux{args.node_id}")
-    _install_flight(args.run_dir, f"mux{args.node_id}")
-    if mlog is not None:
-        # timeline grouping evidence: fed_timeline parks every virtual
-        # client's track under this muxer's process
-        from fedml_tpu_torch.obs.telemetry import get_telemetry
-
-        get_telemetry().event("mux_members", muxer=args.node_id,
-                              nodes=node_ids)
-    stop_flusher = _start_event_flusher(mlog)
-    # the muxer's ONE reporter pre-merges the whole virtual cohort:
-    # its digest covers every co-located node id, so the hub/server
-    # ingests one stream per connection (not per client) — the O(conns)
-    # stats-plane cost model.  It sends through the primary virtual
-    # node's chaos-wrapped endpoint (fault-plan parity).
-    reporter = _start_stats_reporter(args, mgr.reporter_backend(), mgr,
-                                     nodes=node_ids)
-    mgr.run()  # returns on FINISH
-    if reporter is not None:
-        reporter.stop(final_flush=False)  # idempotent; FINISH flushed
-    stop_flusher()
-    if mlog is not None:
-        mlog.log_telemetry()
-        mlog.close()
+            wrap = lambda vb: ChaosBackend(vb, plan)  # noqa: E731
+        # crash schedule: the flag wins; otherwise ANY virtual id with a
+        # plan-scheduled crash takes the whole muxer down at the EARLIEST
+        # such round — a process crash is process-granular, so one virtual
+        # client's schedule costs its co-located peers too (the honest
+        # muxer blast radius; chaos_run's muxer_crash scenario); a mesh
+        # muxer's workers go with it (their group breaks)
+        crash_rounds = [
+            r for r in (_resolve_crash_round(args.crash_at_round, plan, n)
+                        for n in node_ids)
+            if r is not None
+        ]
+        mgr = FedAvgMuxClientManager(
+            mux, lu, ds, batch_size=args.batch_size,
+            template_variables=init, seed=args.seed,
+            train_delay=args.train_delay,
+            crash_at_round=min(crash_rounds) if crash_rounds else None,
+            wrap_backend=wrap,
+            rejoin_every_round=args.rejoin_every_round,
+            traffic=_traffic_model("muxer"),
+            mesh=mesh,
+            partition_rules=args.partition_rules or None,
+            device=device,
+        )
+        if ranks is not None:
+            ranks.watch(mgr.fail_mesh)
+        mlog = _node_metrics_logger(args.run_dir, f"mux{args.node_id}")
+        _install_flight(args.run_dir, f"mux{args.node_id}")
+        if mlog is not None:
+            # timeline grouping evidence: fed_timeline parks every virtual
+            # client's track under this muxer's process
+            get_telemetry().event("mux_members", muxer=args.node_id,
+                                  nodes=node_ids)
+        stop_flusher = _start_event_flusher(mlog)
+        # the muxer's ONE reporter pre-merges the whole virtual cohort:
+        # its digest covers every co-located node id, so the hub/server
+        # ingests one stream per connection (not per client) — the O(conns)
+        # stats-plane cost model.  It sends through the primary virtual
+        # node's chaos-wrapped endpoint (fault-plan parity).
+        reporter = _start_stats_reporter(args, mgr.reporter_backend(), mgr,
+                                         nodes=node_ids)
+        try:
+            mgr.run()  # returns on FINISH (and releases the mesh's ranks)
+        finally:
+            if reporter is not None:
+                reporter.stop(final_flush=False)  # idempotent; FINISH flushed
+            stop_flusher()
+            if mlog is not None:
+                mlog.log_telemetry()
+                mlog.close()
     # the same per-client reproducibility probes the single-process
     # role prints — one line per virtual client, so digest comparisons
     # are topology-blind
@@ -638,6 +684,12 @@ def run_muxer(args) -> None:
             f"client_{n}_upload_digest": digests[n],
             f"client_{n}_rounds_trained": mgr.rounds_trained[n],
         }), flush=True)
+    if mesh is not None:
+        snap = get_telemetry().snapshot()
+        print(json.dumps({f"muxer_{args.node_id}_mesh": {
+            "gauges": {k: v for k, v in snap["gauges"].items() if k.startswith("shard.")},
+            "counters": {k: v for k, v in snap["counters"].items()
+                         if k.startswith("shard.")}}}), flush=True)
 
 
 def run_edge_hub(args) -> None:
@@ -839,11 +891,17 @@ def launch(
 
     ``device`` is every child's ``--device``: "" runs them on the card
     (the kernels are built here once, before any child starts, so N
-    children never start N compilers), "cpu" on the CPU.  ``mesh`` and
-    ``partition_rules`` raise (ROADMAP queue A item 6c-2).
+    children never start N compilers), "cpu" on the CPU.
+
+    ``mesh`` (``"dp,mp"``) and ``partition_rules`` go to the muxer
+    children only: each muxer's cohorts train on a mesh of ranks it spawns
+    (``run_muxer``).  ``partition_rules`` without ``mesh``, and ``mesh``
+    without muxers, raise ``ValueError``.
     """
-    if mesh or partition_rules:
-        raise NotImplementedError(MESH_REFUSAL)
+    if partition_rules and not mesh:
+        raise ValueError("partition_rules picks the mesh cohort's rule table; it needs mesh=")
+    if mesh and not muxers:
+        raise ValueError("mesh= lays a muxer's cohort over ranks; it needs muxers")
     env = dict(env or os.environ)
     if device != "cpu" and env.get("FEDML_TPU_FORCE_CPU") != "1":
         from fedml_tpu_torch.ops.build import CSRC, build_all
@@ -1037,6 +1095,10 @@ def launch(
                         me + ["--role", "muxer", "--node-id", str(start),
                               "--virtual-clients", str(size)] + common
                         + port_override
+                        # muxer cohorts step on a dp x mp mesh of ranks
+                        + (["--mesh", mesh] if mesh else [])
+                        + (["--partition-rules", partition_rules]
+                           if partition_rules else [])
                         + (["--rejoin-every-round"]
                            if mux_rejoin_every_round else [])
                         + (["--crash-at-round", str(crash_muxer_at_round)]
@@ -1222,8 +1284,10 @@ def main(argv=None):
     # of the bytes measurement); --input-dim scales the model so byte
     # ratios measure payload, not envelope.
     p.add_argument("--codec", default="none")
-    # rule-driven sharding of a muxer's cohort over a device mesh: not
-    # ported (ROADMAP queue A item 6c-2), so any role given them raises
+    # rule-driven sharding (parallel/partition.py): the muxer trains its
+    # virtual cohort on a dp x mp mesh of ranks it spawns, rows over dp,
+    # the model laid out by the rule table over mp; other roles refuse the
+    # flags (launch() gives them to muxers only)
     p.add_argument("--mesh", default="")
     p.add_argument("--partition-rules", default="")
     p.add_argument("--wire", type=int, choices=[1, 2], default=2)
@@ -1319,8 +1383,12 @@ def main(argv=None):
     # "" = the CUDA card (the process raises without one), "cpu" = the CPU
     p.add_argument("--device", choices=["", "cpu", "cuda"], default="")
     args = p.parse_args(argv)
-    if args.mesh or args.partition_rules:
-        raise NotImplementedError(MESH_REFUSAL)
+    if args.partition_rules and not args.mesh:
+        raise ValueError("--partition-rules picks the mesh cohort's rule table; it needs "
+                         "--mesh dp,mp")
+    if args.mesh and args.role != "muxer":
+        raise ValueError(f"--mesh lays a muxer's cohort over ranks; the {args.role} role "
+                         "has no mesh path")
     from fedml_tpu_torch.utils.device import resolve_device
 
     # every role, the hub included, runs where it is told to: without a

@@ -23,14 +23,13 @@ NCCL on the card.
 - ``tensor.py`` — the Megatron tensor-parallel transformer.
 - ``gspmd.py`` — FedAvg rounds on a ``(clients, model)`` mesh with the
   tensor-parallel transformer.
-- ``partition.py`` — the partition-rule tables and the rule engine's round
-  on a ``(dp, mp)`` mesh.
+- ``partition.py`` — the partition-rule tables, the rule engine's round
+  on a ``(dp, mp)`` mesh, and ``CohortEngine``, a muxed cohort's step on
+  one (``algorithms/fedavg_mux.py``'s ``mesh=``: the muxer is rank 0, the
+  other ranks resident workers it feeds cohort by cohort).
 - ``pipeline.py`` — the GPipe microbatch pipeline over a ``pp`` axis.
 - ``expert.py`` — the top-1 mixture-of-experts FFN over an ``ep`` axis,
   its tokens routed by ``compat.all_to_all``.
 - ``dryrun.py`` — ``dryrun_multichip``, the multi-device check, and the
   rank bodies of the CPU parity tests.
-
-The muxed cohort on a mesh (ROADMAP.md, queue A item 6c-2) is not ported
-yet.
 """

@@ -34,6 +34,9 @@ across CPU processes, NCCL on the card.
   (gloo's send aborts on one); gloo's all-to-all takes it as it is.
 - ``single_rank_group()`` makes this process a world of one rank (a
   1-rank mesh in process, beside the single-device code it must equal).
+- ``host_ranks(fn, n, *args)`` makes this process rank 0 of ``n`` and
+  spawns ranks 1..n-1 to run ``fn``: resident workers that rank 0 feeds
+  (the mesh muxer's).
 - ``launch(fn, n, *args)`` spawns ``n`` ranks, runs ``fn(*args)`` on each
   inside an initialized process group, and returns each rank's result
   with its tensors as numpy arrays.  Rendezvous is a ``FileStore`` in a
@@ -54,6 +57,7 @@ import os
 import queue
 import shutil
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
@@ -561,6 +565,118 @@ def _rank_main(fn, rank: int, world_size: int, init_method: str, backend: str,
     except BaseException:  # reported to the launcher, which fails the launch
         results.put((rank, False, traceback.format_exc()))
         raise
+
+
+class HostedRanks:
+    """The spawned ranks 1..n-1 of a group whose rank 0 is this process
+    (``host_ranks``).  ``failure()`` is the report of the first rank that
+    exited other than cleanly, or None; ``watch(cb)`` calls ``cb(report)``
+    once, from a watcher thread, as soon as there is one."""
+
+    def __init__(self, procs, results):
+        self.procs, self.results = procs, results
+        self._reports: dict = {}
+        self._stop = threading.Event()
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                rank, ok, payload = self.results.get_nowait()
+            except queue.Empty:
+                return
+            if not ok:
+                self._reports[rank] = payload
+
+    def failure(self, grace: float = 0.0) -> Optional[str]:
+        """The first failed rank's report; ``grace`` seconds allow a rank
+        that is failing to exit and its traceback to arrive."""
+        deadline = time.monotonic() + grace
+        while True:
+            self._drain()
+            for rank, p in enumerate(self.procs, start=1):
+                if p.exitcode not in (None, 0) and (rank in self._reports
+                                                    or time.monotonic() >= deadline):
+                    report = self._reports.get(rank, f"exited with code {p.exitcode}")
+                    return f"rank {rank} of {len(self.procs) + 1} failed:\n{report}"
+            if time.monotonic() >= deadline:
+                return None
+            time.sleep(0.05)
+
+    def watch(self, on_failure: Callable[[str], None], interval: float = 0.2) -> None:
+        def loop():
+            while not self._stop.wait(interval):
+                report = self.failure()
+                if report is not None:
+                    on_failure(report)
+                    return
+
+        threading.Thread(target=loop, daemon=True, name="hosted-ranks-watch").start()
+
+
+@contextlib.contextmanager
+def host_ranks(fn: Callable, world_size: int, *args, device: DeviceLike = None,
+               timeout: float = 1800.0):
+    """This process as rank 0 of a world of ``world_size`` ranks for the
+    block's duration, ranks 1..n-1 spawned to run ``fn(*args)`` (one torch
+    intra-op thread each, rank r on ``cuda:r % device_count`` on the card):
+    NCCL where every rank has a card of its own, gloo where ranks share one
+    (NCCL refuses two ranks on a card) and on the CPU.  ``timeout`` bounds
+    every collective (and so the idle time between two of rank 0's).
+    Yields a ``HostedRanks``.
+
+    A block that ends normally meets the ranks at a barrier (each returns
+    from ``fn`` first), tears the group down and waits for the ranks; any
+    rank that failed raises ``RuntimeError`` with its traceback.  A block
+    that raises tears the group down and kills the ranks; where a rank
+    failed, the ``RuntimeError`` with its traceback is raised from the
+    block's exception."""
+    device_type = resolve_device(device).type
+    backend = ("nccl" if device_type == "cuda" and world_size <= torch.cuda.device_count()
+               else "gloo")
+    ctx = multiprocessing.get_context("spawn")
+    results = ctx.Queue()
+    tmp = tempfile.mkdtemp(prefix="fedml_mesh_")
+    init_method = "file://" + os.path.join(tmp, "store")
+    procs = [ctx.Process(target=_rank_main, daemon=True,
+                         args=(fn, r, world_size, init_method, backend, device_type,
+                               timeout, args, results))
+             for r in range(1, world_size)]
+    ranks = HostedRanks(procs, results)
+    try:
+        for p in procs:
+            p.start()
+        if device_type == "cuda":
+            torch.cuda.set_device(0)
+        dist.init_process_group(backend, init_method=init_method, rank=0,
+                                world_size=world_size,
+                                timeout=datetime.timedelta(seconds=timeout))
+        try:
+            yield ranks
+            dist.barrier()
+        except BaseException as e:
+            report = ranks.failure(grace=5.0)
+            if report is not None:
+                raise RuntimeError(report) from e
+            raise
+        finally:
+            ranks._stop.set()
+            dist.destroy_process_group()
+        deadline = time.monotonic() + 60.0
+        for p in procs:
+            ranks._drain()  # (a rank's report is read before it is joined)
+            p.join(timeout=max(1.0, deadline - time.monotonic()))
+        report = ranks.failure()
+        if report is not None:
+            raise RuntimeError(report)
+    finally:
+        ranks._stop.set()
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            if p.pid is not None:
+                p.join()
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def launch(fn: Callable, world_size: int, *args, device: DeviceLike = None,

@@ -79,9 +79,9 @@ from fedml_tpu_torch.parallel.layout import (Shard, axis_sizes, mesh_coords, sha
 from fedml_tpu_torch.parallel.mesh import describe_mesh, make_dp_mp_mesh, mesh_from_spec
 from fedml_tpu_torch.parallel.pipeline import (make_gpipe, make_pp_mesh, serial_reference,
                                                shard_stage_params)
-from fedml_tpu_torch.parallel.partition import (FEDLLM_RULES, make_rule_round_fn,
-                                                residual_store, resolve_rules,
-                                                shard_by_rules)
+from fedml_tpu_torch.parallel.partition import (FEDLLM_RULES, CohortEngine,
+                                                make_rule_round_fn, residual_store,
+                                                resolve_rules, shard_by_rules)
 from fedml_tpu_torch.parallel.ring_attention import (blockwise_attention, ring_attention,
                                                      ring_flash_attention)
 from fedml_tpu_torch.parallel.sequence import make_sequence_mesh, sequence_parallel_lm
@@ -664,6 +664,38 @@ def rules_case(spec: Dict) -> Dict:
             "store_bytes": {"made": made, "after": _store_bytes(state.residuals)}}
 
 
+def cohort_case(spec: Dict) -> Dict:
+    """A muxed cohort's step (``partition.CohortEngine``) on a ``(dp, mp)``
+    mesh of ``spec["mesh"]`` over the first dp*mp ranks (the others return
+    ``{"member": False}``): the transformer ``transformer_lm(**dims)`` from
+    ``PRNGKey(0)``, SGD at ``lr``, under ``table``, over the cohort's
+    per-client blocks ``data`` (x, y, mask), each row keyed as the muxer
+    keys it (``fold_in(fold_in(fold_in(PRNGKey(seed), round), 0), slot)``
+    for ``slots``).  Returns the rows this rank trained and every row's
+    trained variables and metrics; with ``single`` rank 0 also runs the
+    mesh-free loop (the plain local update, row by row)."""
+    dp, mp = spec["mesh"]
+    mesh = make_dp_mp_mesh(dp, mp, devices=list(range(dp * mp)), device=spec["device"])
+    if mesh.get_coordinate() is None:
+        return {"member": False}
+    dev = mesh_device(mesh)
+    bundle = _lm_bundle(spec, dev)
+    lu = make_local_update(bundle, make_client_optimizer("sgd", spec["lr"]), epochs=1)
+    variables = bundle.init(PRNGKey(0))
+    engine = CohortEngine(mesh, lu, variables, resolve_rules(spec.get("table", "fedllm")))
+    x, y, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in spec["data"])
+    k_train = rng.fold_in(rng.fold_in(PRNGKey(spec["seed"]), spec["round"]), 0)
+    keys = [rng.fold_in(k_train, int(s)) for s in spec["slots"]]
+    rows = engine.rows(int(x.shape[0]))
+    trained, metrics = engine(variables, [(x[r], y[r], mask[r]) for r in rows],
+                              [keys[r] for r in rows])
+    out = {"member": True, "mine": list(rows), "rows": trained, "metrics": metrics}
+    if spec.get("single") and dist.get_rank() == 0:
+        out["single"] = [lu(variables, x[k], y[k], mask[k], keys[k])
+                         for k in range(int(x.shape[0]))]
+    return out
+
+
 def _store_bytes(store) -> int:
     """The bytes a rank holds of a laid-out store."""
     return sum(s.block.numel() * s.block.element_size() for s in _shards_of(store))
@@ -900,7 +932,7 @@ CASES = {"mesh": mesh_case, "spmd": spmd_case, "hier": hier_case, "gossip": goss
          "dp_sp": dp_sp_case, "run_main": run_main_case, "tp": tp_case,
          "tp_grads": tp_grads_case, "dp_tp": dp_tp_case, "rules": rules_case,
          "wire": wire_case, "collectives": collectives_case, "pp": pp_case, "ep": ep_case,
-         "a2a": a2a_case}
+         "a2a": a2a_case, "cohort": cohort_case}
 
 
 def run_cases(cases: Sequence[Tuple[str, Dict]]) -> List[Dict]:

@@ -17,8 +17,8 @@ On the matcher sit the appliers: ``shard_by_rules`` lays a tree out on a
 opt_state_sharding_like``), the error-feedback residual store with its
 client rows over ``dp``; ``make_rule_round_fn`` runs the FedAvg round with
 the cohort over ``dp`` and the variables laid out by the table;
-``cohort_shardings`` gives the layouts a muxed cohort would take (its
-engine is ROADMAP item 6c-2).
+``cohort_shardings`` gives the layouts a muxed cohort's step takes, and
+``CohortEngine`` runs that step (``algorithms/fedavg_mux.py``'s mesh).
 
 How the round computes: each rank stores its slice of each leaf, and each
 client's local update gathers the sharded leaves over ``mp`` at every
@@ -49,10 +49,10 @@ from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.parallel.compat import (all_gather, axis_index, mesh_device, psum,
                                              replicated_out, use_mesh)
-from fedml_tpu_torch.parallel.layout import (Placement, axis_sizes, blocks, check_divisible,
-                                             is_sharded, map_tree, mesh_coords, place, rewrap,
-                                             shard_leaf, shard_slice, spec_axes, unshard,
-                                             zeros_placed)
+from fedml_tpu_torch.parallel.layout import (Placement, axis_sizes, block_index, blocks,
+                                             check_divisible, is_sharded, map_tree,
+                                             mesh_coords, place, rewrap, shard_leaf,
+                                             shard_slice, spec_axes, unshard, zeros_placed)
 from fedml_tpu_torch.parallel.mesh import DP_AXIS, MP_AXIS
 from fedml_tpu_torch.parallel.spmd import _as_tensor, shard_client_block
 from fedml_tpu_torch.parallel.tensor import mean_grads_over
@@ -601,14 +601,77 @@ def make_rule_round_fn(
 
 
 def cohort_shardings(mesh, variables_template: PyTree, table: RuleTable):
-    """The layouts a muxed cohort's step takes (its engine is ROADMAP item
-    6c-2): the broadcast variables by rules over ``mp``, every per-client
-    stacked array (data rows, keys, the output tree and its metrics) with
-    the cohort axis on ``dp``.  Returns ``(var_in, data, var_out,
-    stacked)``, where ``stacked`` is the plain ``("dp",)`` placement."""
+    """The layouts a muxed cohort's step takes (``CohortEngine``): the
+    broadcast variables by rules over ``mp``, every per-client stacked
+    array (data rows, keys, the output tree and its metrics) with the
+    cohort axis on ``dp``.  Returns ``(var_in, data, var_out, stacked)``,
+    where ``stacked`` is the plain ``("dp",)`` placement."""
     specs = match_partition_rules(table, variables_template)
     validate_divisibility(variables_template, specs, axis_sizes(mesh))
     var_in = named_sharding_tree(mesh, specs)
     stacked = Placement(mesh, (DP_AXIS,))
     var_out = treelib.tree_map(lambda s: Placement(mesh, (DP_AXIS, *s)), specs)
     return var_in, stacked, var_out, stacked
+
+
+class CohortEngine:
+    """The muxed cohort's step on a ``(dp, mp)`` mesh: JAX's
+    ``jit_sharded(vmap(local_update.fn))`` under ``cohort_shardings``
+    (``fedml_tpu/algorithms/fedavg_mux.py:194-222``), one rank per mesh
+    position.
+
+    A cohort of ``n`` clients (``dp`` dividing ``n``) lays its rows out as
+    ``P("dp")``: the ranks of ``dp`` row ``k`` train the contiguous block of
+    rows ``rows(n)``, one local update after another in row order.  The
+    broadcast variables are laid out by ``table`` over ``mp``; the ``mp``
+    ranks of a row gather the laid-out leaves at every forward and train the
+    whole model (``_GatheredBundle``), so each row's result is bit for bit
+    the single-device local update's at every ``mp``.  The trained rows come
+    back laid out as ``var_out`` (rows over ``dp``, the parameter dims like
+    the parameters'), and ``__call__`` gathers them over the mesh: every
+    rank returns the whole cohort in row order.
+
+    ``local_update`` is ``make_local_update`` over the plain bundle (rebuilt
+    here over the gathering bundle); a variable's spec may name ``mp`` only.
+    Every rank of ``mesh`` builds the engine and calls it for every cohort."""
+
+    def __init__(self, mesh, local_update, variables_template: PyTree,
+                 table: RuleTable = FEDLLM_RULES):
+        if local_update.rebind is None or local_update.bundle is None:
+            raise ValueError("the cohort engine rebuilds the local update over the laid-out "
+                             "model: build it with make_local_update")
+        self.mesh, self.sizes = mesh, axis_sizes(mesh)
+        self.coords = mesh_coords(mesh)
+        self.var_in, self.data, self.var_out, _ = cohort_shardings(
+            mesh, variables_template, table)
+        specs = treelib.tree_map(lambda p: p.spec, self.var_in)
+        for path, spec in _leaves_with_path(specs):
+            if set(spec_axes(spec)) - {MP_AXIS}:
+                raise ValueError(f"rule table {table.name!r}: leaf {_leaf_path(path)!r} has "
+                                 f"spec {spec}; the cohort engine lays variables over "
+                                 f"{MP_AXIS!r} only ({DP_AXIS!r} carries the cohort)")
+        self.lu = local_update.rebind(_GatheredBundle(local_update.bundle, specs, mesh))
+        self.sharded = ([k for k, s in specs["params"].items() if is_sharded(s)]
+                        if self.sizes[MP_AXIS] > 1 else [])
+
+    def rows(self, n: int) -> range:
+        """The rows of an ``n``-client cohort this rank trains."""
+        (lo, hi), = block_index((n,), self.data.spec, self.sizes, self.coords)
+        return range(lo, hi)
+
+    def __call__(self, variables: PyTree, data, keys) -> Tuple[List[PyTree], List[Dict]]:
+        """``variables``: the whole broadcast variables (the same on every
+        rank); ``data``: ``(x, y, mask)`` of each of this rank's rows, and
+        ``keys`` their threefry keys.  Returns the cohort's trained
+        variables (whole leaves) and metrics (0-dim tensors), row by row."""
+        laid = blocks(place(variables, self.var_in))
+        with use_mesh(self.mesh), treelib.sharded_leaves(
+                self.sharded, lambda t: replicated_out(t, MP_AXIS)):
+            out = [self.lu(laid, x, y, mask, key) for (x, y, mask), key in zip(data, keys)]
+            stacked = treelib.tree_stack([o[0] for o in out])
+            metrics = {name: torch.stack([m[name] for _, m in out]) for name in out[0][1]}
+            whole = map_tree(lambda b, p: unshard(b, p.spec), stacked, self.var_out)
+            metrics = {name: unshard(v, self.data.spec) for name, v in metrics.items()}
+        n = int(next(iter(jax_leaves(whole)))[1].shape[0])
+        return ([treelib.tree_index(whole, k) for k in range(n)],
+                [{name: v[k] for name, v in metrics.items()} for k in range(n)])

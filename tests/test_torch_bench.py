@@ -1,8 +1,9 @@
 """The port's bench workloads and CLI (``fedml_tpu_torch/bench.py``) at tiny
 cuts on the CPU: ``build_north_star`` for both conv variants (the kernel
-variant runs each conv's plain version on the CPU), the metric line with
-the JAX bench's names, and the refusals of knobs with no eager
-counterpart.  The JAX bench's data draws are the port's."""
+variant runs each conv's plain version on the CPU) and resnet_tpu's s2d and
+padding variants, the metric line with the JAX bench's names, and the
+refusals of the XLA loop-unroll knobs.  The JAX bench's data draws are the
+port's."""
 
 import json
 
@@ -57,9 +58,23 @@ def test_north_star_variants_share_the_model():
     assert torch.allclose(mk["loss_sum"], mb["loss_sum"], rtol=5e-2, atol=5e-2)
 
 
-@pytest.mark.parametrize("variant,exc", [
-    ("s2d1", NotImplementedError), ("pad32", NotImplementedError),
-    ("pallas", ValueError)])
+@pytest.mark.parametrize("variant", ["s2d1", "pad32"])
+def test_tpu_variants_match_the_baseline_round(variant):
+    """resnet_tpu's space-to-depth and lane-padding variants: the same
+    variables, and one round within the kernel-against-baseline tolerance
+    of the library baseline's (bf16 compute)."""
+    (rv, sv, av, _), (rb, sb, ab, _) = (
+        bench.build_north_star(conv_variant=v, **{**TINY, "rounds_per_call": 1})
+        for v in (variant, "baseline"))
+    for k, v in sv.variables["params"].items():
+        assert torch.equal(v, sb.variables["params"][k])
+    sv, mv = rv(sv, *av)
+    _, mb = rb(sb, *ab)
+    assert torch.isfinite(mv["loss_sum"]).all()
+    assert torch.allclose(mv["loss_sum"], mb["loss_sum"], rtol=5e-2, atol=5e-2)
+
+
+@pytest.mark.parametrize("variant,exc", [("pallas", ValueError)])
 def test_build_north_star_refuses_other_variants(variant, exc):
     with pytest.raises(exc):
         bench.build_north_star(conv_variant=variant, **TINY)
@@ -88,11 +103,19 @@ def test_cli_fedllm_prints_the_metric_line(capsys):
     assert line["detail"]["tokens_per_s"] > 0 and out["detail"]["config"]["vocab"] == 32
 
 
-@pytest.mark.parametrize("argv", [["--unroll", "4"], ["--client-unroll", "2"],
-                                  ["--conv-variant", "s2d1"]],
-                         ids=["unroll", "client_unroll", "s2d1"])
+def test_cli_north_star_runs_an_s2d_variant(capsys):
+    bench.main(["--workload", "north_star", "--conv-variant", "s2d1", "--clients", "1",
+                "--batch", "2", "--steps", "1", "--rounds-per-call", "1", "--rounds", "1",
+                "--device", "cpu"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["metric"] == "fedavg_resnet56_cifar10_local_train_throughput"
+    assert line["value"] > 0 and line["device"] == "cpu"
+
+
+@pytest.mark.parametrize("argv", [["--unroll", "4"], ["--client-unroll", "2"]],
+                         ids=["unroll", "client_unroll"])
 def test_cli_refuses_knobs_with_no_eager_counterpart(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="XLA's while loop.*ROADMAP"):
         bench.main([*argv, "--clients", "1", "--batch", "2", "--steps", "1",
                     "--rounds-per-call", "1", "--rounds", "1", "--device", "cpu"])
 

@@ -1,8 +1,10 @@
 """The port's ResNets (``fedml_tpu_torch/models/resnet.py`` with library
-convs, ``resnet_tpu.py`` with the kernel convs) held against the JAX
-package's ``CifarResNet`` and ``CifarResNetTPU(conv_variant="pallas")``
-(Pallas in interpret mode), Bottleneck (2,2,2), with the flax variables
-carried across by ``models/convert.py``.
+convs, ``resnet_tpu.py`` with the kernel convs and its space-to-depth and
+lane-padding variants) held against the JAX package's ``CifarResNet`` and
+``CifarResNetTPU`` (``conv_variant="pallas"``, Pallas in interpret mode;
+``s2d_stages`` 1/2/3 and ``pad_stage1_to=32`` on XLA's convs), Bottleneck
+(2,2,2), with the flax variables carried across by ``models/convert.py``;
+the five s2d helpers bit for bit JAX's.
 
 Tolerances: eval logits rtol 2e-4 / atol 2e-5, train loss rtol 1e-5 and
 batch_stats rtol 2e-4 / atol 1e-5 (those of
@@ -20,12 +22,14 @@ from fedml_tpu.models.base import ModelBundle as JBundle
 from fedml_tpu.models.resnet import BasicBlock as JBasicBlock
 from fedml_tpu.models.resnet import Bottleneck as JBottleneck
 from fedml_tpu.models.resnet import CifarResNet as JCifarResNet
+from fedml_tpu.models import resnet_tpu as jresnet_tpu
 from fedml_tpu.models.resnet_tpu import CifarResNetTPU as JCifarResNetTPU
 from fedml_tpu_torch.core.rng import PRNGKey
 from fedml_tpu_torch.core.tree import tree_cast_floats
 from fedml_tpu_torch.models.base import ModelBundle
 from fedml_tpu_torch.models.convert import from_jax_variables
 from fedml_tpu_torch.models.resnet import BasicBlock, Bottleneck, CifarResNet
+from fedml_tpu_torch.models import resnet_tpu
 from fedml_tpu_torch.models.resnet_tpu import CifarResNetTPU, resnet56_tpu
 
 LAYERS = (2, 2, 2)
@@ -33,13 +37,23 @@ HW = 16
 CPU = torch.device("cpu")
 
 
+# resnet_tpu's space-to-depth and lane-padding variants (XLA's convs in JAX,
+# library convs in the port)
+TPU_VARIANTS = {"s2d1": {"s2d_stages": 1}, "s2d2": {"s2d_stages": 2},
+                "s2d3": {"s2d_stages": 3}, "pad32": {"pad_stage1_to": 32}}
+
+
 def _models(variant):
     if variant == "baseline":
         jm = JCifarResNet(block=JBottleneck, layers=LAYERS, num_classes=10)
         tm = CifarResNet(Bottleneck, LAYERS, 10)
-    else:
+    elif variant == "kernel":
         jm = JCifarResNetTPU(layers=LAYERS, num_classes=10, conv_variant="pallas")
         tm = CifarResNetTPU(LAYERS, 10, conv_variant="kernel")
+    else:
+        kw = TPU_VARIANTS[variant]
+        jm = JCifarResNetTPU(layers=LAYERS, num_classes=10, conv_variant="xla", **kw)
+        tm = CifarResNetTPU(LAYERS, 10, conv_variant="xla", **kw)
     return (JBundle(module=jm, input_shape=(HW, HW, 3)),
             ModelBundle(module=tm, input_shape=(HW, HW, 3), device=CPU))
 
@@ -101,7 +115,7 @@ def test_same_variable_tree_as_flax(variant, setup):
             assert tuple(v.shape) == jflat[k].shape, k
 
 
-@pytest.mark.parametrize("variant", ["baseline", "kernel"])
+@pytest.mark.parametrize("variant", ["baseline", "kernel", *TPU_VARIANTS])
 def test_matches_jax_fp32(variant, setup):
     jvars, x, y = setup
     jb, tb = _models(variant)
@@ -146,9 +160,40 @@ def test_matches_jax_bf16_compute(variant, setup):
 
 
 def test_kernel_variant_refuses_tpu_tilings():
-    for kw in ({"s2d_stages": 1}, {"pad_stage1_to": 32}, {"conv_variant": "xla"}):
+    """JAX's two ValueErrors (``resnet_tpu.py:355-367``): s2d with lane
+    padding, and the kernel route (JAX's "pallas") with either transform;
+    and a conv variant neither package has."""
+    for kw in ({"s2d_stages": 1, "pad_stage1_to": 32, "conv_variant": "xla"},
+               {"s2d_stages": 1, "conv_variant": "kernel"},
+               {"pad_stage1_to": 32, "conv_variant": "kernel"}):
+        jkw = {**kw, "conv_variant": "pallas" if kw["conv_variant"] == "kernel" else "xla"}
+        jb = JBundle(module=JCifarResNetTPU(layers=(1, 1, 1), num_classes=10, **jkw),
+                     input_shape=(HW, HW, 3))
+        with pytest.raises(ValueError):
+            jb.init(jax.random.PRNGKey(0))
         with pytest.raises(ValueError):
             resnet56_tpu(device="cpu", **kw)
+    with pytest.raises(ValueError):
+        resnet56_tpu(device="cpu", conv_variant="pallas")
+
+
+def test_s2d_helpers_bitwise_jax():
+    """``space_to_depth``, ``depth_to_space`` and the three kernel
+    re-scatters equal JAX's bit for bit (they only move values)."""
+    rng = np.random.RandomState(3)
+    x = rng.standard_normal((2, 8, 8, 5)).astype(np.float32)
+    pairs = [("space_to_depth", x), ("depth_to_space", x[..., :4]),
+             ("s2d_kernel_stride1", rng.standard_normal((3, 3, 5, 7)).astype(np.float32)),
+             ("s2d_kernel_stride1", rng.standard_normal((1, 1, 5, 7)).astype(np.float32)),
+             ("s2d_kernel_stride2", rng.standard_normal((3, 3, 5, 7)).astype(np.float32)),
+             ("s2d_kernel_stride2_1x1", rng.standard_normal((1, 1, 5, 7)).astype(np.float32))]
+    for name, a in pairs:
+        want = np.asarray(getattr(jresnet_tpu, name)(jnp.asarray(a)))
+        got = getattr(resnet_tpu, name)(torch.from_numpy(a)).numpy()
+        assert got.dtype == want.dtype and got.shape == want.shape, name
+        np.testing.assert_array_equal(got, want, err_msg=name)
+    np.testing.assert_array_equal(resnet_tpu.depth_to_space(resnet_tpu.space_to_depth(
+        torch.from_numpy(x))).numpy(), x)
 
 
 def test_basic_block_resnet_matches_jax():

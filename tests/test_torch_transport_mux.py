@@ -7,8 +7,9 @@ counterparts of ``tests/test_mux.py:351`` and ``tests/test_edge_tree.py``:
   feedback;
 - a two-edge tree federation is byte for byte the flat one;
 - the float64 partial fold composes bitwise with the flat fold, and is
-  JAX's fold bit for bit;
-- the device-mesh paths refuse, naming ROADMAP item 6.
+  JAX's fold bit for bit.
+
+The muxer's cohort on a mesh of ranks is ``tests/test_torch_mux_mesh.py``'s.
 
 Federations run as real processes on the CPU with one thread each, each
 with its own timeout."""
@@ -129,20 +130,3 @@ def test_tiered_fold_composes_bitwise_and_matches_jax():
         tree_mean = ptree.tree_finalize_weighted_mean(root_acc, root_n, uploads[0][0])
         for k in flat_mean:
             np.testing.assert_array_equal(np.asarray(tree_mean[k]), np.asarray(flat_mean[k]))
-
-
-def test_mesh_paths_refuse_naming_item_6(tmp_path):
-    from fedml_tpu_torch.algorithms.fedavg_mux import FedAvgMuxClientManager
-    from fedml_tpu_torch.experiments import distributed_fedavg as df
-
-    with pytest.raises(NotImplementedError, match="item 6"):
-        df.launch(out_path=str(tmp_path / "x.npz"), mesh="1x1", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        df.launch(out_path=str(tmp_path / "x.npz"), partition_rules="fedllm",
-                  device="cpu")
-    for flags in (["--mesh", "1x1"], ["--partition-rules", "fedllm"]):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            df.main(["--role", "muxer", "--port", "1", "--device", "cpu"] + flags)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        FedAvgMuxClientManager(None, None, None, batch_size=16, template_variables={},
-                               mesh=object(), device="cpu")
