@@ -1,0 +1,9 @@
+"""Tokens trained per second over the window: every window round's
+tokens over the time from its first round's start to its last round's end
+(host clock)."""
+
+
+def read(ctx):
+    if ctx.count_unit != "tokens":
+        return None
+    return ctx.units / ctx.window_s
