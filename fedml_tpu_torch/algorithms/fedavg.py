@@ -27,6 +27,7 @@ bit-identically.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, NamedTuple, Optional, Tuple
 
@@ -50,7 +51,7 @@ from fedml_tpu_torch.core.client import (
     make_local_update,
 )
 from fedml_tpu_torch.core.losses import LossFn, masked_softmax_ce
-from fedml_tpu_torch.core.metrics import MetricsLogger
+from fedml_tpu_torch.core.metrics import MetricsLogger, span, trace
 from fedml_tpu_torch.core.sampling import (
     eligible_participation_mask,
     host_sample_ids,
@@ -155,7 +156,12 @@ def make_round_fn(
     participation-weighted metric are ``psum``'d over that axis of the
     bound mesh, so every rank ends the round with the same state.  The
     clients' streams stay keyed by their global slot ids, whichever rank
-    holds them."""
+    holds them.
+
+    Under an active logger (``core/metrics.py``) the round opens the
+    spans ``client`` around each local update, ``fold`` around each
+    weighted fold and ``server_update`` around the divide and the
+    server's step."""
     if error_feedback and axis_name is not None:
         raise ValueError(
             "error_feedback is not defined under shard_map (axis_name="
@@ -193,8 +199,9 @@ def make_round_fn(
         clients = []
         train_metrics: dict = {}
         for k, slot in enumerate(ids):
-            cvars, cm = local_update(state.variables, x[k], y[k], mask[k],
-                                     rnglib.fold_in(k_train, slot))
+            with span("client"):
+                cvars, cm = local_update(state.variables, x[k], y[k], mask[k],
+                                         rnglib.fold_in(k_train, slot))
             if codec is not None:
                 old = layout.row(residuals, slot) if error_feedback else None
                 cvars, new = uplink_roundtrip(
@@ -205,7 +212,8 @@ def make_round_fn(
                     layout.set_row(residuals, slot,
                                    torch.where(participation[k] > 0, new, old))
             if aggregate_transform is None and aggregate_impl is None:
-                num = treelib.tree_fold_weighted_f32(num, cvars, weights[k])
+                with span("fold"):
+                    num = treelib.tree_fold_weighted_f32(num, cvars, weights[k])
             else:
                 clients.append(cvars)
             for name, v in cm.items():
@@ -221,20 +229,22 @@ def make_round_fn(
                 num = aggregate_impl(weights, stacked)
             else:
                 for k in range(len(ids)):
-                    num = treelib.tree_fold_weighted_f32(
-                        num, treelib.tree_index(stacked, k), weights[k])
+                    with span("fold"):
+                        num = treelib.tree_fold_weighted_f32(
+                            num, treelib.tree_index(stacked, k), weights[k])
         den = weights.sum()
         n_participants = participation.sum()
         if axis_name is not None:
             num, den, n_participants, train_metrics = psum(
                 (num, den, n_participants, train_metrics), axis_name)
-        # zero-participation guard: with den == 0 the weighted average is
-        # undefined, so the round leaves the model untouched
-        agg = treelib.tree_map(
-            lambda s, ref: torch.where(
-                den > 0, (s / torch.clamp_min(den, 1e-12)).to(ref.dtype), ref),
-            num, state.variables)
-        new_vars, new_opt = server_update(state.variables, agg, state.opt_state)
+        with span("server_update"):
+            # zero-participation guard: with den == 0 the weighted average
+            # is undefined, so the round leaves the model untouched
+            agg = treelib.tree_map(
+                lambda s, ref: torch.where(
+                    den > 0, (s / torch.clamp_min(den, 1e-12)).to(ref.dtype), ref),
+                num, state.variables)
+            new_vars, new_opt = server_update(state.variables, agg, state.opt_state)
         train_metrics["participants"] = n_participants
         return ServerState(new_vars, new_opt, state.round_idx + 1, state.key,
                            residuals), train_metrics
@@ -396,6 +406,12 @@ class FedAvgSimulation:
     ``local_update`` replaces the one built from the config.  The initial
     variables are flax's under ``PRNGKey(config.seed)``.
 
+    ``metrics`` times spans on the simulation's device and is the active
+    logger (``core/metrics.py``) for each round-function call, so the
+    spans opened inside the round (``client``, ``step``, ``fold``, ...)
+    land in the round's row beside ``round``; ``profile_round`` (a round
+    index) runs that round of ``run()`` under ``core/metrics.trace``.
+
     Subclasses (the algorithm family) override ``_build_round_fn`` (their
     own round kernel), ``_sample_ids`` (the cohort), ``_cohort_block`` (the
     cohort's device block), ``_annotate_round`` (fields of a history row)
@@ -426,6 +442,7 @@ class FedAvgSimulation:
         self.dataset = dataset
         self.cfg = config
         self.metrics = metrics or MetricsLogger()
+        self.metrics.use_device(self.device)
         optimizer = make_client_optimizer(
             config.client_optimizer, config.lr if client_lr is None else client_lr,
             momentum=config.momentum, weight_decay=config.weight_decay,
@@ -476,6 +493,8 @@ class FedAvgSimulation:
         self._ckpt_every = 0
         self._ckpt_last: Optional[int] = None
         self.crash_at_round: Optional[int] = None
+        # run() runs this round under the profiler capture (core/metrics.trace)
+        self.profile_round: Optional[int] = None
         # model payload per participant per direction (fp32 wire bytes)
         self._model_nbytes = sum(
             t.numel() * t.element_size()
@@ -615,11 +634,13 @@ class FedAvgSimulation:
                 rnglib.PRNGKey(self.cfg.seed), round_idx, participation,
                 self.cfg.drop_prob)
         with self.metrics.span("round"):
-            self.state, metrics = self.round_fn(
-                self.state, x, y, mask, num_samples, participation, ids)
+            with self.metrics.activate():
+                self.state, metrics = self.round_fn(
+                    self.state, x, y, mask, num_samples, participation, ids)
             # the float() read-backs wait for the device, so the span
             # measures the round, not the enqueue
-            out = {k: float(v) for k, v in metrics.items()}
+            with self.metrics.span("readback"):
+                out = {k: float(v) for k, v in metrics.items()}
         self._record_sim_comm(len(ids), uploads=int(round(out["participants"])))
         out = self._train_row(out, round_idx)
         self._annotate_round(out, ids, round_idx)
@@ -639,7 +660,9 @@ class FedAvgSimulation:
         rounds = rounds if rounds is not None else self.cfg.comm_rounds
         for i in range(rounds):
             self._crash_if_scheduled()
-            metrics = self.run_round()
+            profiled = int(self.state.round_idx) == self.profile_round
+            with trace(logger=self.metrics) if profiled else contextlib.nullcontext():
+                metrics = self.run_round()
             self._count_degraded(metrics)
             r = metrics["round"]
             # the final eval keys on this call's last round, so run(rounds=N)
@@ -685,7 +708,7 @@ class FedAvgSimulation:
             del base, chunk_ids
             fused = make_multi_round_fn(None, n, drop_prob=cfg.drop_prob,
                                         round_fn=self.round_fn, device=self.device)
-            with self.metrics.span("round"):
+            with self.metrics.span("round"), self.metrics.activate():
                 self.state, stacked = fused(self.state, x, y, mask,
                                             num_samples, participation, ids)
             return stacked
@@ -717,7 +740,7 @@ class FedAvgSimulation:
                 stacked_args = tuple(torch.stack([b[j] for b in blocks])
                                      for j in range(4))
             part = torch.ones((n, len(chunk_ids[0])), device=self.device)
-            with self.metrics.span("round"):
+            with self.metrics.span("round"), self.metrics.activate():
                 self.state, stacked = fused(self.state, *stacked_args, part,
                                             np.stack(chunk_ids))
             return stacked
@@ -748,7 +771,7 @@ class FedAvgSimulation:
             # run_chunk spans its own round (the sampled driver packs first);
             # the float() read-backs wait for the chunk's device work
             stacked = run_chunk(base, n, chunk_ids)
-            with self.metrics.span("round"):
+            with self.metrics.span("round"), self.metrics.span("readback"):
                 rows = []
                 for i in range(n):
                     out = self._train_row(

@@ -33,6 +33,7 @@ import torch
 from fedml_tpu_torch.core import rng as rnglib
 from fedml_tpu_torch.core import tree as treelib
 from fedml_tpu_torch.core.losses import LossFn, masked_softmax_ce
+from fedml_tpu_torch.core.metrics import span
 from fedml_tpu_torch.models.base import ModelBundle
 
 Params = Dict[str, torch.Tensor]
@@ -182,7 +183,12 @@ def make_local_update(
     x)`` (``data/augment.py``) and the model's step keys.  Returns
     (new_variables, metrics) where metrics carries summed
     loss/correct/count over the final epoch and ``steps``, the optimizer
-    steps taken on batches with a real sample, over all epochs."""
+    steps taken on batches with a real sample, over all epochs.
+
+    Under an active logger (``core/metrics.py``) it opens the spans
+    ``shuffle`` and ``augment`` per epoch and ``step`` per optimizer step,
+    with ``forward``, ``backward`` and ``optimizer`` inside it; the
+    optimizer's on the device clock too."""
 
     def loss_and_aux(params, others, global_params, x, y, m, key):
         variables = {**others, "params": params}
@@ -211,40 +217,46 @@ def make_local_update(
         for ep in range(epochs):
             ek = rnglib.fold_in(key, ep)
             if shuffle:
-                perm = rnglib.permutation(rnglib.fold_in(ek, 0), n, x.device)
-                xs = x.reshape(n, *x.shape[2:])[perm].reshape(x.shape)
-                ys = y.reshape(n, *y.shape[2:])[perm].reshape(y.shape)
-                ms = mask.reshape(n)[perm].reshape(mask.shape)
+                with span("shuffle"):
+                    perm = rnglib.permutation(rnglib.fold_in(ek, 0), n, x.device)
+                    xs = x.reshape(n, *x.shape[2:])[perm].reshape(x.shape)
+                    ys = y.reshape(n, *y.shape[2:])[perm].reshape(y.shape)
+                    ms = mask.reshape(n)[perm].reshape(mask.shape)
             else:
                 xs, ys, ms = x, y, mask
             if augment_fn is not None:
                 # fresh augmentation of every sample once per epoch (the
                 # reference's torchvision semantics), one call per epoch
-                flat = augment_fn(rnglib.fold_in(ek, n + 1),
-                                  xs.reshape(n, *x.shape[2:]))
-                xs = flat.reshape(x.shape)
+                with span("augment"):
+                    flat = augment_fn(rnglib.fold_in(ek, n + 1),
+                                      xs.reshape(n, *x.shape[2:]))
+                    xs = flat.reshape(x.shape)
             # the training metrics; a multi-label loss's precision/recall
             # sums are evaluation metrics, as in the JAX local update
             sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
             for i in range(steps):
-                leaves = {k: params[k].detach().requires_grad_(True) for k in names}
-                with torch.enable_grad():
-                    loss, new_vars, aux = loss_and_aux(
-                        leaves, others, global_params, xs[i], ys[i], ms[i],
-                        rnglib.fold_in(ek, i + 1))
-                    grads = torch.autograd.grad(loss, [leaves[k] for k in names])
-                with torch.no_grad():
-                    grads = dict(zip(names, grads))
-                    updates, opt_state = optimizer.update(grads, opt_state, params)
-                    has_real = ms[i].sum() > 0
-                    # a pad-only batch leaves the params where they were
-                    params = {k: torch.where(has_real, params[k] + updates[k],
-                                             params[k]) for k in names}
-                    others = treelib.tree_detach(
-                        {k: v for k, v in new_vars.items() if k != "params"})
-                    for k in sums:
-                        sums[k] = sums[k] + aux[k].detach()
-                    real_steps = real_steps + has_real.float()
+                with span("step"):
+                    leaves = {k: params[k].detach().requires_grad_(True) for k in names}
+                    with torch.enable_grad():
+                        with span("forward"):
+                            loss, new_vars, aux = loss_and_aux(
+                                leaves, others, global_params, xs[i], ys[i], ms[i],
+                                rnglib.fold_in(ek, i + 1))
+                        with span("backward"):
+                            grads = torch.autograd.grad(loss, [leaves[k] for k in names])
+                    with torch.no_grad():
+                        grads = dict(zip(names, grads))
+                        with span("optimizer", device=True):
+                            updates, opt_state = optimizer.update(grads, opt_state, params)
+                            has_real = ms[i].sum() > 0
+                            # a pad-only batch leaves the params where they were
+                            params = {k: torch.where(has_real, params[k] + updates[k],
+                                                     params[k]) for k in names}
+                        others = treelib.tree_detach(
+                            {k: v for k, v in new_vars.items() if k != "params"})
+                        for k in sums:
+                            sums[k] = sums[k] + aux[k].detach()
+                        real_steps = real_steps + has_real.float()
         metrics = {**sums, "steps": real_steps}
         return {**others, "params": params}, metrics
 

@@ -47,7 +47,9 @@ runtime's tutorial template (no model, no data: scalar local results
 summed over the in-process message bus, the per-round sums its
 history); ``--checkpoint_every/--checkpoint_dir/--resume``
 (the FedAvg-engine family), ``--crash_at_round`` with the JAX package's
-semantics, and ``--compress/--compress_ef`` (update compression with
+semantics, ``--profile_round R`` (the port's own: round R of a
+``FedAvgSimulation`` under the profiler capture, its ``kind=trace``
+record in ``metrics.jsonl``), and ``--compress/--compress_ef`` (update compression with
 error feedback) on the FedAvg engine's own round kernel (FedNova builds
 its own and refuses it) and fedllm's rule engine.  ``--compress`` outside
 those raises ``NotImplementedError`` (the JAX package ignores it there), and
@@ -177,6 +179,10 @@ class ExperimentConfig:
     # before this round trains — the crash half of the chaos layer's
     # crash-then-resume bit-identity check; -1 = off
     crash_at_round: int = -1
+    # run this round (an index, as crash_at_round's) under the profiler
+    # capture (core/metrics.trace): <run_dir>/trace/trace.json and a
+    # kind=trace record of the device's idle time by span; -1 = off
+    profile_round: int = -1
     # the port's stand-in for JAX_PLATFORMS: "" = the CUDA card (raises
     # without one), "cpu" = the CPU with every kernel's plain version
     device: str = ""
@@ -276,6 +282,10 @@ def _refuse_unported(cfg: ExperimentConfig) -> None:
             f"--compress/--compress_ef on {cfg.algorithm}: only the FedAvg "
             "engine's round compresses; the JAX package's other drivers do "
             "not (ROADMAP.md, queue C4)")
+    if cfg.profile_round >= 0 and (cfg.algorithm not in _METRICS_NATIVE or cfg.sp_degree > 1
+                                   or cfg.tp_degree > 1 or cfg.mesh):
+        raise ValueError(f"--profile_round runs a round of FedAvgSimulation.run(); "
+                         f"{cfg.algorithm} does not run on it here")
     if cfg.algorithm in _OWN_MODELS and (cfg.conv_variant or cfg.compute_dtype):
         # the JAX entry point ignores --compute_dtype for these (ROADMAP C4)
         raise ValueError(
@@ -385,6 +395,8 @@ def _dispatch(cfg: ExperimentConfig, log_fn, metrics, t0) -> dict:
     done = _attach_checkpointing(cfg, sim)
     if cfg.crash_at_round >= 0:
         sim.crash_at_round = cfg.crash_at_round
+    if cfg.profile_round >= 0:
+        sim.profile_round = cfg.profile_round
     # run() already merges evaluate_global() into the final round
     hist = sim.run(rounds=max(0, cfg.comm_round - done), log_fn=log_fn)
     out = {"history": hist, "final": hist[-1] if hist else None,
@@ -786,7 +798,7 @@ def _attach_checkpointing(cfg: ExperimentConfig, sim) -> int:
     # resume from each other
     stable = {k: v for k, v in dataclasses.asdict(cfg).items()
               if k not in ("run_dir", "resume", "crash_at_round", "checkpoint_dir",
-                           "checkpoint_every", "comm_round", "device")}
+                           "checkpoint_every", "comm_round", "device", "profile_round")}
     tag = hashlib.sha1(json.dumps(stable, sort_keys=True).encode()).hexdigest()[:10]
     ckdir = cfg.checkpoint_dir or os.path.join(
         "runs", "ckpt", f"{cfg.algorithm}-{cfg.dataset}-seed{cfg.seed}-{tag}")

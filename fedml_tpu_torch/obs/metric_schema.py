@@ -151,8 +151,10 @@ HISTOGRAMS = {
 }
 
 # --- dynamic-name patterns ---------------------------------------------------
-# MetricsLogger.span(name) emits f"span.{name}_s" for driver-defined
-# span names (sample/pack/round/eval/...): any span.*_s is a histogram.
+# an outermost MetricsLogger.span(name) emits f"span.{name}_s" for
+# driver-defined span names (sample/pack/round/eval/...): any span.*_s
+# is a histogram.  Spans nested in another (those inside a round) feed
+# the round rows only.
 METRIC_PATTERNS = {
     "span.*_s": "histogram",
 }

@@ -33,7 +33,8 @@ The backward, like the JAX package's (``_flash_bwd_single``, a
 ``lax.scan`` left to XLA), is not a hand-written kernel: it recomputes
 ``p`` per KV block of ``block_k`` from the saved LSE in fp32 with
 ``torch.matmul``, batched over every (batch, head), and carries the LSE
-cotangent (``ds = p·(dp − D + dlse)``).
+cotangent (``ds = p·(dp − D + dlse)``).  Each call is an ``attn_bwd``
+span on the active logger (``core/metrics.py``), on the device clock too.
 """
 
 from __future__ import annotations
@@ -45,6 +46,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from fedml_tpu_torch.core.metrics import span
 
 NEG_INF = -1e30
 _KERNEL_D = (8, 16, 32, 64, 128)
@@ -318,7 +321,8 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do, dlse):  # an unused output's cotangent arrives as zeros
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, dlse, ctx.causal, ctx.block_k)
+        with span("attn_bwd", device=True):
+            dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, dlse, ctx.causal, ctx.block_k)
         return dq, dk, dv, None, None
 
 
